@@ -29,6 +29,8 @@ from __future__ import annotations
 import argparse
 import sys
 
+ENGINES = ["xla", "mxu", "mxu3", "gemm", "gemm8", "gemm8hq"]
+
 
 def main(argv=None):
     parser = argparse.ArgumentParser(prog="jeicyboodsp_tpu", description=__doc__)
@@ -43,17 +45,14 @@ def main(argv=None):
     parser.add_argument(
         "--engine",
         default=None,
-        choices=["xla", "mxu", "mxu3", "mxu8", "mxu8f", "mxu8t", "gemm",
-                 "gemm8", "gemm8hq"],
-        help="FFT engine for --fast pipelines that support it "
-        "(mxu3 = 3-pass MXU matmul DFT; "
-        "mxu8 = enhance-only full-int8 fused kernels, 2x MAC rate, ~84 dB; "
-        "mxu8f = enhance-only fully-fused single kernel incl. the noise "
-        "latch, same ~84 dB class; "
-        "mxu8t = the turbo tier of mxu8 (r4 4-dot arithmetic, ~70 dB); "
-        "gemm = fastconv-only f32 banded-Toeplitz GEMM, no spectral "
-        "round-trip; gemm8 = the int8-MXU Toeplitz GEMM, ~77 dB -- the "
-        "fastconv --fast default)",
+        choices=ENGINES,
+        help="transform engine for --fast pipelines that support it "
+        "(xla = jnp.fft; mxu = matmul DFT as float32 dots; "
+        "mxu3 = matmul DFT as bf16x3 dots; "
+        "gemm = fastconv-only banded-Toeplitz GEMM (float32 dots), no spectral "
+        "round-trip; gemm8 = fastconv-only int8 Toeplitz GEMM, ~77 dB; "
+        "gemm8hq = its 3-term form, the fastconv --fast default). "
+        "A pipeline refuses an engine it does not implement.",
     )
     parser.add_argument(
         "--verbose",
@@ -74,13 +73,15 @@ def main(argv=None):
 
     import jax
 
+    from jeicyboodsp_tpu.utils.runtime import setup_compile_cache
+
+    setup_compile_cache()
     if ns.cpu:
         jax.config.update("jax_platforms", "cpu")
     if not ns.fast:
-        # compat mode is f64 (c128 FFTs): TPU backends don't support x64, so
-        # compat pipelines run on the host CPU backend (the reference is a
-        # single-core CPU program; the TPU paths are the --fast f32 engines)
-        jax.config.update("jax_platforms", "cpu")
+        # compat mode is f64 (c128 FFTs) on the default device: on the H100
+        # every pipeline's compat path meets the exactness COVERAGE.md
+        # documents for it (chip_smoke.py's compat_* phases, PERF.md)
         jax.config.update("jax_enable_x64", True)
 
     from jeicyboodsp_tpu.pipelines import PIPELINES

@@ -3,61 +3,42 @@
 Every knob is a compile-time ``#define`` in the reference; the originating
 constant is cited so compat stays auditable.  ``compat="reference"``
 reproduces the reference output (f64, quirks on); ``compat="fast"`` runs the
-f32 TPU speed-of-light path (same math, relaxed bit-level quirks).
+f32 speed path on the accelerator (same math, relaxed bit-level quirks).
 """
 
 from __future__ import annotations
 
 import dataclasses
 
-# Per-engine fidelity contract (VERDICT r3 item 2): SNR floors in dB vs the
-# f64 oracle on the standard speech+noise probe, asserted by
-# tests/test_engine_matrix.py (interpret-mode kernels) and re-proven on real
-# silicon by utils/tpu_checks.run_checks with every driver bench.  "typ" is
-# the measured value on the probe; "floor" is the CI bound.  Engines below
-# the 60 dB compat bar are not CLI-reachable (mxu1 is kept only as a guard).
+# Per-engine fidelity contract: SNR floors in dB vs the f64 oracle on the
+# standard speech+noise probe, asserted on the CPU by
+# tests/test_engine_matrix.py and on the GPU by chip_smoke.py.  "algo" is
+# the dot algorithm the engine asks for on float32 operands (see
+# ops/dft.py); "floor" is the contract.  Measured values live in PERF.md.
 ENGINE_FIDELITY = {
     # enhance chain (wiener/specsub)
-    ("enhance", "xla"): dict(floor=95.0, typ=104.0, note="f32 XLA VPU FFT"),
-    ("enhance", "mxu"): dict(floor=90.0, typ=100.0, note="bf16x6 matmul DFT"),
-    ("enhance", "mxu3"): dict(floor=85.0, typ=90.0, note="bf16x3 fused Pallas"),
-    ("enhance", "mxu8"): dict(
-        floor=78.0, typ=83.8,
-        note="full-int8 fused Pallas: int8-split fwd rDFT + per-row-quantized "
-             "int8 inverse.  r5 tier: lo-cross dots included + 2-level row "
-             "quantization (the r4 ~70 dB came from dropping them)",
-    ),
-    ("enhance", "mxu8f"): dict(
-        floor=78.0, typ=83.8,
-        note="fully-fused single kernel (in-kernel noise latch as exact "
-             "power-of-two 0/1 matmuls); same int8 arithmetic as mxu8",
-    ),
-    ("enhance", "mxu8t"): dict(
-        floor=65.0, typ=69.7,
-        note="turbo tier: the r4 4-dot/1-level arithmetic on the fused-full "
-             "kernel -- an explicit speed/fidelity trade, ~20% faster than "
-             "the 78-floor tier (the usual A/B headline winner, ~7.0 G)",
-    ),
-    ("enhance", "mxu1"): dict(
-        floor=None, typ=52.0, note="1-pass bf16: BELOW the 60 dB bar; "
-        "excluded from the CLI (guarded by tpu_checks mxu1_below_bar)",
-    ),
-    # fastconv (--fast default engine: gemm8hq since r5)
-    ("fastconv", "xla"): dict(floor=88.0, typ=96.6, note="tiled rfft"),
-    ("fastconv", "gemm"): dict(floor=95.0, typ=107.0, note="f32 Toeplitz GEMM"),
+    ("enhance", "xla"): dict(floor=95.0, algo="jnp.fft (cuFFT)"),
+    ("enhance", "mxu"): dict(floor=90.0, algo="matmul DFT, F32_F32_F32 (HIGHEST)"),
+    ("enhance", "mxu3"): dict(floor=85.0, algo="matmul DFT, BF16_BF16_F32_X3"),
+    # fastconv (--fast default engine: gemm8hq)
+    ("fastconv", "xla"): dict(floor=88.0, algo="batched jnp.fft rfft"),
+    ("fastconv", "gemm"): dict(floor=95.0, algo="Toeplitz GEMM, Precision.HIGHEST"),
     ("fastconv", "gemm8"): dict(
-        floor=70.0, typ=78.0,
-        note="int8 Toeplitz GEMM (4-dot) turbo tier: bounded by "
-             "the operator-split residual -- the sparse RIR concentrates it",
+        floor=70.0, algo="int8 Toeplitz GEMM (4 s8xs8->s32 dots); bounded by "
+        "the operator-split residual -- the sparse RIR concentrates it",
     ),
     ("fastconv", "gemm8hq"): dict(
-        floor=85.0, typ=90.3,
-        note="3-term int8 Toeplitz GEMM (5th dot recaptures the operator "
-             "residual), the --fast default since r5",
+        floor=85.0, algo="3-term int8 Toeplitz GEMM (5 s8xs8->s32 dots), "
+        "the --fast default",
     ),
-    # mvdr / mfcc (engine changes only the DFT GEMM passes)
-    ("mvdr", "mxu3"): dict(floor=80.0, typ=90.0, note="theta=0 collapse is exact"),
-    ("mfcc", "mxu3"): dict(floor=100.0, typ=111.0, note="fused Pallas kernel 85 dB on TPU"),
+    # mvdr / mfcc (engine changes only the DFT GEMMs)
+    ("mvdr", "xla"): dict(floor=80.0, algo="jnp.fft (cuFFT)"),
+    ("mvdr", "mxu"): dict(floor=80.0, algo="matmul DFT, Precision.HIGHEST; theta=0 collapse is exact"),
+    ("mvdr", "mxu3"): dict(floor=80.0, algo="matmul DFT, BF16_BF16_F32_X3; theta=0 collapse is exact"),
+    ("mfcc", "xla"): dict(floor=100.0, algo="jnp.fft (cuFFT)"),
+    # mfcc offers no mxu3: bf16x3 measured 80.2 dB on the H100 (PERF.md),
+    # the log stage amplifies the basis residual at spectral valleys
+    ("mfcc", "mxu"): dict(floor=100.0, algo="matmul DFT, Precision.HIGHEST"),
 }
 
 

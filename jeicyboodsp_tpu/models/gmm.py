@@ -1,10 +1,12 @@
-"""GMM training (K-means + EM + PCA) and scoring, batched for TPU.
+"""GMM training (K-means + EM + PCA) and scoring, batched on the device.
 
 Reference: ``GMMAlgorithm_Train_Auto_ver2.cpp`` / ``GMMAlgorithm_Test_Auto_ver2.cpp``
 (oracle: :mod:`jeicyboodsp_tpu.oracle.gmm` -- all compat quirks listed there).
 
-TPU mapping vs the reference's scalar loops:
-- distances/projections/responsibility sums are matmuls (MXU);
+Device mapping vs the reference's scalar loops:
+- distances/projections/responsibility sums are matmuls, all float32/64
+  dots at ``Precision.HIGHEST`` (the GPU's default f32 dot is TF32, and
+  the classification is chaotic under small perturbations);
 - the per-frame-per-mixture eigendecomposition in the reference's E-step hot
   loop (``:272`` calling ``probability`` -> ``EigenSolver`` per call!) is
   loop-invariant and hoisted to ONE batched ``jnp.linalg.eigh`` per mixture
@@ -34,6 +36,10 @@ from jeicyboodsp_tpu.oracle.gmm import (
 )
 from jeicyboodsp_tpu.utils.cnum import REF_PI
 
+# float32 dots stay float32 on the GPU (its default f32 dot is TF32)
+_HI = jax.lax.Precision.HIGHEST
+_mm = functools.partial(jnp.matmul, precision=_HI)
+
 
 def _top_eigpairs(cov, k):
     vals, vecs = jnp.linalg.eigh(cov)
@@ -47,8 +53,8 @@ def _pca_prob(frames, mean, cov, n_keep):
     frames: (N, 12); returns (N,) densities.
     """
     vals, vecs = _top_eigpairs(cov, n_keep)
-    xp = frames @ vecs  # (N, k) MXU
-    mp = mean @ vecs
+    xp = _mm(frames, vecs)  # (N, k)
+    mp = _mm(mean, vecs)
     terms = (1.0 / jnp.sqrt(2.0 * REF_PI)) * (1.0 / jnp.sqrt(vals)) * jnp.exp(
         -0.5 * (xp - mp[None, :]) ** 2 / vals
     )
@@ -86,7 +92,7 @@ def kmeans(frames, mask, init_means):
         keep_going = (count == 1) | (jnp.abs(cost - cost_before) >= THRESHOLD_OF_DISTANCE)
         # mean update (only when continuing; on convergence means stay)
         cnt = jnp.sum(sel, axis=0).astype(frames.dtype)
-        sums = sel.astype(frames.dtype).T @ frames
+        sums = _mm(sel.astype(frames.dtype).T, frames)
         new_means = jnp.where(cnt[:, None] > 0, sums / jnp.maximum(cnt, 1.0)[:, None], 0.0)
         means_next = jnp.where(keep_going, new_means, means)
         return (count, ~keep_going, sel, means_next, jnp.where(keep_going, cost, cost_before))
@@ -100,7 +106,7 @@ def kmeans(frames, mask, init_means):
     cnt = jnp.sum(sel, axis=0).astype(frames.dtype)
     diff = frames[:, None, :] - means[None, :, :]  # (N, 4, 12)
     w = sel.astype(frames.dtype)
-    covs = jnp.einsum("nk,nki,nkj->kij", w, diff, diff) / cnt[:, None, None]
+    covs = jnp.einsum("nk,nki,nkj->kij", w, diff, diff, precision=_HI) / cnt[:, None, None]
     return means, covs
 
 
@@ -117,9 +123,9 @@ def em_step(frames, mask, alpha, mean, cov):
 
     n_of_key = alpha + jnp.sum(w, axis=0)
     alpha_new = n_of_key / n
-    mean_new = (mean + w.T @ frames) / n_of_key[:, None]
+    mean_new = (mean + _mm(w.T, frames)) / n_of_key[:, None]
     diff = frames[:, None, :] - mean_new[None, :, :]
-    cov_new = jnp.einsum("nk,nki,nkj->kij", w, diff, diff) / n_of_key[:, None, None]
+    cov_new = jnp.einsum("nk,nki,nkj->kij", w, diff, diff, precision=_HI) / n_of_key[:, None, None]
     return alpha_new, mean_new, cov_new
 
 
@@ -184,7 +190,7 @@ def pca_export(alpha, mean, cov):
 
     def one(mean_k, cov_k):
         vals, vecs = _top_eigpairs(cov_k, PCA_LEN_TRAIN)
-        proj = mean_k @ vecs
+        proj = _mm(mean_k, vecs)
         mean_out = jnp.zeros((FEATURE_LEN,), mean_k.dtype).at[:PCA_LEN_TRAIN].set(proj)
         cov_out = cov_k
         for i in range(PCA_LEN_TRAIN):
@@ -205,7 +211,7 @@ def score_frames(frames, alpha, mean, cov, eigvec):
     """
 
     def mixture(k):
-        xp = frames @ eigvec[k][:, :PCA_LEN_TEST]  # (N, 4)
+        xp = _mm(frames, eigvec[k][:, :PCA_LEN_TEST])  # (N, 4)
         var = jnp.diagonal(cov[k])[:PCA_LEN_TEST]
         terms = (1.0 / jnp.sqrt(2.0 * REF_PI)) * (1.0 / jnp.sqrt(var)) * jnp.exp(
             -0.5 * (xp - mean[k][:PCA_LEN_TEST]) ** 2 / var

@@ -31,21 +31,21 @@ _F64P = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
 
 
 def _build() -> bool:
+    """Compile to a private file, then rename it into place: processes that
+    build concurrently (test workers) never load a half-written library."""
+    import tempfile
+
     os.makedirs(os.path.dirname(_LIB), exist_ok=True)
-    cmd = [
-        "g++",
-        "-O2",
-        "-shared",
-        "-fPIC",
-        "-ffp-contract=off",
-        "-o",
-        _LIB,
-        _SRC,
-    ]
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(_LIB))
+    os.close(fd)
+    cmd = ["g++", "-O2", "-shared", "-fPIC", "-ffp-contract=off", "-o", tmp, _SRC]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)
+        os.replace(tmp, _LIB)
         return True
     except Exception:
+        if os.path.exists(tmp):
+            os.remove(tmp)
         return False
 
 

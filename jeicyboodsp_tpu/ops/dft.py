@@ -1,20 +1,19 @@
-"""DFTs as MXU matmuls -- the systolic-array FFT engine for small N.
+"""DFTs as dense matmuls (the ``mxu*`` engines).
 
-For the framework's 1024-pt transforms, evaluating the DFT as dense
-matmuls on the MXU beats the XLA VPU FFT at bench batch sizes: at
-``precision=HIGH`` (3-pass bf16x3, ~f32 accuracy in the 80-100 dB range)
-the headline enhancement chain measures 1.8x the XLA-FFT engine; at
-``HIGHEST`` (6-pass) accuracy is ~140 dB but the matmuls cost more than
-the FFT.  DEFAULT (1-pass bf16) lands below the 60 dB compat bar -- don't.
+For the framework's 1024-pt transforms the DFT can be evaluated as two
+dense matmuls against cached cos/sin bases instead of an FFT.  Which is
+faster on a given card is a measurement (``PERF.md``); the accuracy is set
+by the dot algorithm each engine names.
 
-All matrices are cached numpy f32 constants, embedded at trace time
-(complex device transfers are unsupported on this backend, so everything
-is carried as separate real/imag planes).
+All matrices are cached numpy f32 constants, embedded at trace time, and
+carried as separate real/imag planes.
 
-Precision knob convention (shared by the pipeline ``fft_engine`` flags):
-  "mxu"  -> Precision.HIGHEST
-  "mxu3" -> Precision.HIGH      (the headline-bench default)
-  "mxu1" -> Precision.DEFAULT   (below compat target; exposed for studies)
+Engine -> dot algorithm (float32 operands):
+  "mxu"  -> Precision.HIGHEST: a true float32 dot (never TF32)
+  "mxu3" -> DotAlgorithmPreset.BF16_BF16_F32_X3: three bf16 products
+            with float32 accumulation on the tensor cores (less accurate
+            than float32: per-pipeline SNRs in PERF.md)
+Any other name (e.g. "xla" callers that reach a matmul) gets HIGHEST.
 """
 
 from __future__ import annotations
@@ -27,22 +26,18 @@ import numpy as np
 
 PRECISIONS = {
     "mxu": jax.lax.Precision.HIGHEST,
-    "mxu3": jax.lax.Precision.HIGH,
-    # mxu8 = int8-split forward DFT in the fused enhance kernel; everywhere
-    # a plain-XLA GEMM stands in for it (CPU fallback), HIGH matches its
-    # accuracy class
-    "mxu8": jax.lax.Precision.HIGH,
-    # mxu8f = the fully-fused single-kernel engine (fwd + in-kernel noise
-    # latch + inverse + OLA); mxu8t = the turbo tier (r4 4-dot arithmetic,
-    # ~70 dB, documented speed/fidelity trade); same CPU-fallback class
-    "mxu8f": jax.lax.Precision.HIGH,
-    "mxu8t": jax.lax.Precision.HIGH,
-    "mxu1": jax.lax.Precision.DEFAULT,
+    "mxu3": jax.lax.DotAlgorithmPreset.BF16_BF16_F32_X3,
 }
 
 
 def precision_of(fft_engine: str):
     return PRECISIONS.get(fft_engine, jax.lax.Precision.HIGHEST)
+
+
+def check_engine(fft_engine: str, allowed=("xla", "mxu", "mxu3")) -> None:
+    """Refuse an engine name the caller does not implement (no aliasing)."""
+    if fft_engine not in allowed:
+        raise ValueError(f"unknown engine {fft_engine!r}; choices: {allowed}")
 
 
 def int8_col_split(W):
@@ -51,8 +46,8 @@ def int8_col_split(W):
     Wh/Wl int8, s1/s2 positive f64 per-column scales; the second term
     recaptures the first's rounding residual, leaving a worst-case error
     of max|col|/(127*2*127) ~= 2^-16 relative per column.  Paired with an
-    EXACT int16 -> 2x int8 data split, this runs f32-class GEMMs at the
-    MXU's int8 MAC rate (2x bf16) with int32-exact accumulation.
+    EXACT int16 -> 2x int8 data split, this runs f32-class GEMMs as
+    int8 x int8 -> int32 dots with exact accumulation.
     """
     W = np.asarray(W, np.float64)
     s1 = np.maximum(np.abs(W).max(0), 1e-30) / 127.0
@@ -95,7 +90,7 @@ def _icdft_real_mats(n: int):
     return (np.cos(ang) / n).astype(np.float32), (np.sin(ang) / n).astype(np.float32)
 
 
-def rdft(x, precision=jax.lax.Precision.HIGH):
+def rdft(x, precision=jax.lax.Precision.HIGHEST):
     """Real (..., n) -> half-spectrum (re, im) each (..., n//2+1)."""
     n = x.shape[-1]
     C, S = _rdft_mats(n)
@@ -104,7 +99,7 @@ def rdft(x, precision=jax.lax.Precision.HIGH):
     return re, im
 
 
-def irdft(re, im, n: int, precision=jax.lax.Precision.HIGH):
+def irdft(re, im, n: int, precision=jax.lax.Precision.HIGHEST):
     """Half-spectrum (re, im) (..., n//2+1) -> real (..., n) (irfft)."""
     IC, IS = _irdft_mats(n)
     return jnp.dot(re, jnp.asarray(IC), precision=precision) - jnp.dot(
@@ -119,12 +114,12 @@ def full_from_half(re, im):
     return re_f, im_f
 
 
-def cdft_of_real_full(x, precision=jax.lax.Precision.HIGH):
+def cdft_of_real_full(x, precision=jax.lax.Precision.HIGHEST):
     """Real (..., n) -> full n-bin spectrum (re, im): fft(x) for real x."""
     return full_from_half(*rdft(x, precision=precision))
 
 
-def icdft_real(re, im, precision=jax.lax.Precision.HIGH):
+def icdft_real(re, im, precision=jax.lax.Precision.HIGHEST):
     """Full-bin (re, im) (..., n) -> ifft(..).real (..., n), no symmetry assumed."""
     n = re.shape[-1]
     IC, IS = _icdft_real_mats(n)
@@ -144,7 +139,7 @@ def _autocorr_mats(n: int, keep: int):
     return (wk * np.cos(ang) / n).astype(np.float32)
 
 
-def autocorr_from_half_power(p_half, n: int, keep: int, precision=jax.lax.Precision.HIGH):
+def autocorr_from_half_power(p_half, n: int, keep: int, precision=jax.lax.Precision.HIGHEST):
     """Half-bin power spectrum (..., n//2+1) -> autocorrelation (..., keep)."""
     M = _autocorr_mats(n, keep)
     return jnp.dot(p_half, jnp.asarray(M), precision=precision)

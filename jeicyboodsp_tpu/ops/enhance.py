@@ -1,10 +1,10 @@
-"""Wiener / spectral-subtraction enhancement chain as a TPU-parallel JAX op.
+"""Wiener / spectral-subtraction enhancement chain as a batched JAX op.
 
 Reference: ``WienerFilter_final.cpp`` / ``SpectralSubtraction_final.cpp``
 (see :mod:`jeicyboodsp_tpu.oracle.enhance` for the full semantics).
 
-TPU-first design -- unlike the reference's strictly serial block loop, every
-heavy stage here is batched over *all* blocks at once:
+Unlike the reference's strictly serial block loop, every heavy stage here
+is batched over *all* blocks at once:
 
 1. VAD is a pure function of each block (the reference's VAD keep-buffer
    update is dead code), so flags are computed with one vectorized pass.
@@ -14,10 +14,14 @@ heavy stage here is batched over *all* blocks at once:
 3. The only sequential state -- the noise running average + 10-frame latch --
    is a tiny affine recursion on a 1024-vector, evaluated either as a
    ``lax.scan`` (cheap) or as an O(log T) ``associative_scan`` whose affine
-   composition is exact, enabling time-sharding across chips.
+   composition is exact, enabling time-sharding across devices.
 4. Overlap-add reduces to ``y[t][:512] + y[t-1][512:]`` (1-frame halo), so
    reconstruction is also one batched op; across shards the halo travels by
    ``ppermute``.
+
+Engines (``fft_engine``): ``"xla"`` transforms with ``jnp.fft`` (cuFFT on
+the GPU); ``"mxu"`` and ``"mxu3"`` evaluate the 1024-pt DFT as dense
+matmuls (:mod:`jeicyboodsp_tpu.ops.dft` names the dot algorithm of each).
 """
 
 from __future__ import annotations
@@ -163,9 +167,7 @@ def _noise_latch_parts(speech, planes, chunk: int = 64):
     reached NOISE_FRAMES: a cummax of latch indices + one row gather.
 
     ``planes`` is a tuple of (T, nb_i) magnitude planes latched with the
-    SAME scalar machinery; the fused path passes (mag512, mag_nyquist)
-    separately so every plane pass stays 512-lane-aligned (a 513-wide
-    plane pads to 640 lanes = +25% VPU/HBM waste on every latch op).
+    SAME scalar machinery.
     """
     dtype = planes[0].dtype
     T = planes[0].shape[0]
@@ -186,9 +188,8 @@ def _noise_latch_parts(speech, planes, chunk: int = 64):
         [jnp.zeros((1,), jnp.int32), k2[:-1, -1]]
     )[:, None]
     w = c.reshape(Tp // L, L) * jnp.exp2(lk.astype(dtype))  # exact scaling
-    # prefix sums within chunks as a lower-triangular MATMUL: rides the MXU
-    # (~3x the VPU cumsum's rate at these shapes); the 0/1 triangle is exact
-    # in bf16, so HIGH keeps f32-accurate sums on TPU
+    # prefix sums within chunks as a lower-triangular matmul; HIGHEST keeps
+    # it a float32 dot (the GPU's default f32 dot is TF32)
     tri = jnp.asarray(np.tril(np.ones((L, L), np.float32)), dtype)
     p = jnp.exp2(-lk.astype(dtype))  # exact
 
@@ -210,7 +211,7 @@ def _noise_latch_parts(speech, planes, chunk: int = 64):
         nb = mags.shape[1]
         m = jnp.zeros((Tp, nb), dtype).at[:T].set(mags)
         wm = w[..., None] * m.reshape(Tp // L, L, nb)
-        S = jnp.einsum("lj,cjb->clb", tri, wm, precision=jax.lax.Precision.HIGH)
+        S = jnp.einsum("lj,cjb->clb", tri, wm, precision=jax.lax.Precision.HIGHEST)
         b_el = p[:, -1, None] * S[:, -1]
         _, Bc = jax.lax.associative_scan(comb, (a_el, b_el))
         A0s = jnp.concatenate([jnp.zeros((1, nb), dtype), Bc[:-1]], axis=0)
@@ -231,85 +232,13 @@ def _noise_latch_closed_form(speech, mags, chunk: int = 64):
     return _noise_latch_parts(speech, (mags,), chunk=chunk)[0]
 
 
-def _latch_rowpack(speech, L: int = 64):
-    """Per-row latch scalars for the fully-fused kernel (engine mxu8f).
-
-    The closed form of :func:`_noise_latch_parts` needs only FOUR scalars
-    per row once the magnitudes live in VMEM: the chunk-local weight
-    w = c*2^lk, the rescale p = 2^-lk, the active latch row g (cummax of
-    latch positions, -1 before any latch), and p[g].  All derive from the
-    VAD flags alone -- (T,)-vector work, no (T, 512) planes.  Returns a
-    (T, 8) f32 pack: [w, p, g, p[g], 0, 0, 0, 0].
-    """
-    Tp = speech.shape[0]
-    assert Tp % L == 0, (Tp, L)
-    idx = jnp.arange(Tp)
-    noise = ~speech
-    last_speech = jax.lax.cummax(jnp.where(~noise, idx, -1))
-    cnt = jnp.where(noise, idx - last_speech, 0)
-    upd = noise & (cnt >= 2)
-    halve = upd & (cnt >= 3)
-    c = jnp.where(upd, jnp.where(cnt >= 3, 0.5, 1.0), 0.0).astype(jnp.float32)
-    k = jnp.cumsum(halve.astype(jnp.int32))
-    k2 = k.reshape(Tp // L, L)
-    lk = (
-        k2 - jnp.concatenate([jnp.zeros((1,), jnp.int32), k2[:-1, -1]])[:, None]
-    ).reshape(Tp)
-    w = c * jnp.exp2(lk.astype(jnp.float32))  # exact power-of-two scalings
-    p = jnp.exp2(-lk.astype(jnp.float32))
-    latch = upd & (cnt == NOISE_FRAMES)
-    g = jax.lax.cummax(jnp.where(latch, idx, -1))
-    pg = jnp.where(g >= 0, p[jnp.maximum(g, 0)], 0.0)
-    z = jnp.zeros_like(w)
-    return jnp.stack([w, p, g.astype(jnp.float32), pg, z, z, z, z], axis=1)
-
-
-def _enhance_fused_full(blocks, mode, emit_all, interpret=False, F: int = 256,
-                        L: int = 64, hq: bool = True):
-    """The one-kernel engine (mxu8f): VAD + latch scalars in XLA ((T,)-
-    vector work), EVERYTHING else -- forward int8 rDFT, noise latch, gain,
-    int8 inverse, lane-flip OLA, c_short -- in a single sequential-grid
-    Pallas kernel (kernels.enhance_pallas.enhance_full8_pallas).  HBM
-    traffic drops from ~5 plane round-trips (mxu8) to input + output +
-    an (T, 8) row pack."""
-    from jeicyboodsp_tpu.kernels import enhance_pallas as EP
-
-    T = blocks.shape[0]
-    M = _dft_mats_aligned()
-    J = np.zeros((512, 512), np.float32)
-    J[np.arange(511, 0, -1), np.arange(1, 512)] = 1.0
-    pad = (-T) % F
-    bp = (
-        jnp.concatenate([blocks, jnp.zeros((pad, BLOCK_LEN), blocks.dtype)], axis=0)
-        if pad else blocks
-    )
-    # pad rows are zero blocks -> VAD says speech (zcr 0 < 200), no latch
-    # updates -- identical latch state to the unpadded run.  (r5c measured
-    # NEGATIVE: routing the flags through a dedicated one-read Pallas VAD
-    # kernel -- which standalone costs ~10x less than this XLA pass --
-    # made the CHAIN 7% slower, 6.03 vs 6.50 G interleaved: inside the
-    # chained graph XLA overlaps the VAD pass with the main kernel, while
-    # the extra pallas_call serializes.  Kernel kept as
-    # kernels.enhance_pallas.vad_flags_pallas with the measured note.)
-    speech = vad_flags(bp, jnp.float32)
-    rowpack = _latch_rowpack(speech, L=L)
-    out_i = EP.enhance_full8_pallas(
-        bp, rowpack, _dft_mats_int8(), _dft_mats_int8_back(),
-        M["nyq"], M["u_nyq"], M["y512col"], J,
-        mode=mode, F=F, L=L, emit_all=emit_all, interpret=interpret, hq=hq,
-    )
-    write_mask = jnp.arange(T) >= 2
-    return out_i[:T], write_mask
-
-
 @functools.lru_cache(maxsize=None)
 def _dft_matrices():
     """Real-DFT (1024 -> 513 bins) and inverse matrices as numpy f32.
 
-    The 1024-pt transform as two (1024, 513) matmuls rides the MXU
-    (precision=HIGHEST keeps f32 accuracy; TPU bf16 default would cost
-    ~70 dB) and measures ~1.6x faster than the XLA VPU FFT at the chain's
-    batch sizes.
+    The 1024-pt transform as two (1024, 513) matmuls; the engine's dot
+    algorithm (:func:`jeicyboodsp_tpu.ops.dft.precision_of`) sets its
+    accuracy.
     """
     n = FFT_SIZE
     k = np.arange(n)[:, None] * np.arange(n // 2 + 1)[None, :]
@@ -329,15 +258,16 @@ def frame_transform(frames, dtype, real_fft: bool = False, fft_engine: str = "xl
 
     ``real_fft`` computes only the 513 non-redundant bins (the input is
     real); mathematically identical, half the bandwidth/compute.
-    ``fft_engine="mxu"`` (f32 + real_fft only) evaluates the DFT as two
-    HIGHEST-precision matmuls on the systolic array.
+    ``fft_engine="mxu"``/``"mxu3"`` (f32 only) evaluates the DFT as two
+    matmuls with that engine's dot algorithm.
     """
     w = hamming_ref(FFT_SIZE, dtype)
     windowed = frames.astype(dtype) * w
     if fft_engine.startswith("mxu"):
+        from jeicyboodsp_tpu.ops.dft import precision_of
+
         fwd_re, fwd_im, _, _ = _dft_matrices()
-        hi = {"mxu3": jax.lax.Precision.HIGH, "mxu1": jax.lax.Precision.DEFAULT}.get(
-            fft_engine, jax.lax.Precision.HIGHEST)
+        hi = precision_of(fft_engine)
         re = jnp.dot(windowed, jnp.asarray(fwd_re), precision=hi)
         im = jnp.dot(windowed, jnp.asarray(fwd_im), precision=hi)
         return jax.lax.complex(re, im)
@@ -376,9 +306,10 @@ def gain_and_resynth(
         phase = jnp.arctan2(X.imag, X.real)
         Y = (amp * jnp.cos(phase) + 1j * amp * jnp.sin(phase)).astype(X.dtype)
     if fft_engine.startswith("mxu"):
+        from jeicyboodsp_tpu.ops.dft import precision_of
+
         _, _, inv_re, inv_im = _dft_matrices()
-        hi = {"mxu3": jax.lax.Precision.HIGH, "mxu1": jax.lax.Precision.DEFAULT}.get(
-            fft_engine, jax.lax.Precision.HIGHEST)
+        hi = precision_of(fft_engine)
         return jnp.dot(Y.real, jnp.asarray(inv_re), precision=hi) - jnp.dot(
             Y.imag, jnp.asarray(inv_im), precision=hi
         )
@@ -389,11 +320,10 @@ def gain_and_resynth(
 
 @functools.lru_cache(maxsize=None)
 def _dft_mats_aligned():
-    """MXU-aligned DFT bases: 512-column matmuls + rank-1 Nyquist terms.
+    """512-aligned DFT bases: 512-column matmuls + rank-1 Nyquist terms.
 
-    N=513 matmuls pad to 640 lanes on the MXU (1.25x waste) and K=513
-    contractions measured ~2.6x below peak; splitting the Nyquist bin out
-    (its sin column is exactly zero) keeps every GEMM at 512/1024 tiles.
+    Splitting the Nyquist bin out (its sin column is exactly zero) keeps
+    every GEMM at power-of-two 512/1024 shapes.
     The inverse additionally exploits y[n-s] symmetry -- cos columns are
     even, sin columns odd in s -- so TWO (513->512)-shaped matmuls (u, v)
     yield all 1024 output samples: y[0:512] = u - v, y[512+s] from
@@ -421,203 +351,13 @@ def _dft_mats_aligned():
         nyq=np.ascontiguousarray(C[:, 512]),
         UC512=UC[:512], VS512=VS[:512],  # VS[512] is exactly zero
         u_nyq=np.ascontiguousarray(UC[512]), y512col=y512col,
-        w2=np.ascontiguousarray(ham[512:, 0].astype(np.float32)),  # VAD half
     )
 
 
-@functools.lru_cache(maxsize=None)
-def _dft_mats_int8():
-    """Per-column int8 splits of the window-folded forward bases.
-
-    Each (512, 512) base block W becomes s1*Wh + s2*Wl with int8 Wh/Wl and
-    per-COLUMN f32 scales (rint quantization; s2 recaptures the s1 residual,
-    worst remaining error ~1.5e-5 of max|W| ~= 2^-16).  The data side splits
-    EXACTLY (x = 256*xh + xl + 128), so the only approximation is the
-    matrix residual + the dropped xl@Wl cross term: measured 91 dB per
-    plane vs the f64 DFT -- and int8 MACs run at 2x the bf16 rate.
-    crows folds the +128 data shift: 128*(s1*colsum(Wh) + s2*colsum(Wl)),
-    summed over the prev/cur parts, computed in f64.
-    """
-    from jeicyboodsp_tpu.ops.dft import int8_col_split as split
-
-    M = _dft_mats_aligned()
-    out = {}
-    scales = []
-    crows = []
-    for name, W in (("C", M["WC"]), ("S", M["WS"])):
-        crow = np.zeros(512, np.float64)
-        for part, sl in (("p", slice(0, 512)), ("c", slice(512, 1024))):
-            Wh, Wl, s1, s2 = split(W[sl])
-            out[f"Wh{name}{part}"] = Wh
-            out[f"Wl{name}{part}"] = Wl
-            scales += [s1.astype(np.float32), s2.astype(np.float32)]
-            crow += 128.0 * (s1 * Wh.astype(np.int64).sum(0)
-                             + s2 * Wl.astype(np.int64).sum(0))
-        crows.append(crow.astype(np.float32))
-    out["scales"] = np.stack(scales)  # (8, 512): C p s1,s2, C c, S p, S c
-    out["crows"] = np.stack(crows)    # (2, 512)
-    return out
-
-
-@functools.lru_cache(maxsize=None)
-def _dft_mats_int8_back():
-    """Per-column int8 splits of the symmetry-halved INVERSE bases.
-
-    Same scheme as :func:`_dft_mats_int8` but for UC512/VS512; the data
-    side (the gained spectra) is quantized per row IN the kernel
-    (kernels/enhance_pallas._quant_row_int8) since it is computed there.
-    crows folds the +128 data shift per basis: 128*(s1*colsum(Wh) +
-    s2*colsum(Wl)), computed in f64."""
-    from jeicyboodsp_tpu.ops.dft import int8_col_split as split
-
-    M = _dft_mats_aligned()
-    out = {}
-    scales = []
-    crows = []
-    for name, W in (("U", M["UC512"]), ("V", M["VS512"])):
-        Wh, Wl, s1, s2 = split(W)
-        out[f"{name}h"], out[f"{name}l"] = Wh, Wl
-        scales += [s1.astype(np.float32), s2.astype(np.float32)]
-        crows.append(
-            (128.0 * (s1 * Wh.astype(np.int64).sum(0)
-                      + s2 * Wl.astype(np.int64).sum(0))).astype(np.float32)
-        )
-    out["scales"] = np.stack(scales)  # (4, 512): s1U, s2U, s1V, s2V
-    out["crows"] = np.stack(crows)    # (2, 512)
-    return out
-
-
-def _enhance_fused3(blocks, mode, emit_all, interpret=False, F: int = 256,
-                    int8: bool = False, hq: bool = True):
-    """Fused fast path v3 (the default TPU mxu3 path): u/vv contractions as
-    in _enhance_fused, but the OLA (lane flip + shift + add + c_short)
-    stays in-kernel via an exact 2-pass permutation GEMM (see
-    enhance_back_ola3_pallas) -- equals _enhance_fused to +-1 truncation
-    flips (the kernel sum is the exact one), measured +7% (the XLA OLA
-    assembly was ~5 HBM passes).  The rejected 'fused2'
-    alternative -- folding the flip into a DOUBLED (F, 2048) head+tail
-    contraction -- measured 8% SLOWER and exceeded VMEM at F=512: the flip
-    as an exact 0/1-matrix GEMM costs 2 passes, doubling the contraction
-    costs 6."""
-    from jeicyboodsp_tpu.kernels import enhance_pallas as EP
-
-    T = blocks.shape[0]
-    M = _dft_mats_aligned()
-    J = np.zeros((512, 512), np.float32)
-    J[np.arange(511, 0, -1), np.arange(1, 512)] = 1.0  # J[512-j, j] = 1
-    pad = (-T) % F
-    bp = (
-        jnp.concatenate([blocks, jnp.zeros((pad, BLOCK_LEN), blocks.dtype)], axis=0)
-        if pad else blocks
-    )
-    if int8:
-        # the fwd GEMM operands are raw int16 blocks (window folded into the
-        # bases), so the data side splits EXACTLY into int8 -- 2x MAC rate
-        # (measured fwd 0.284 vs 0.733 ms at T=16384, 91 dB per plane); the
-        # split AND the prev-row shift happen in VMEM (r4)
-        re, im, re_n, mag512, mag_n, sp = EP.enhance_fwd_int8_pallas(
-            bp, _dft_mats_int8(), M["nyq"], M["w2"], F=F, interpret=interpret,
-            hq=hq,
-        )
-    else:
-        prev = jnp.concatenate([jnp.zeros((1, BLOCK_LEN), bp.dtype), bp[:-1]], axis=0)
-        re, im, re_n, mag512, mag_n, sp = EP.enhance_fwd_pallas(
-            prev, bp, M["WC"], M["WS"], M["nyq"], M["w2"], F=F, interpret=interpret
-        )
-    speech = sp[:, 0] > 0.5  # in-kernel VAD (vad_flags semantics)
-    ns512, ns_n = _noise_latch_parts(speech, (mag512, mag_n))
-    write_mask = jnp.arange(T) >= 2
-    if int8:
-        # inverse GEMMs at the int8 MAC rate: the gained spectra quantize
-        # per row in-kernel (~2^-16 of rowmax -- same error class as the
-        # matrix split; the log-amplification argument that killed int8
-        # MFCC does not apply to this linear inverse).  int16 + warm-up
-        # mask come straight out of the kernel.
-        out_i = EP.enhance_back_ola8_pallas(
-            re, im, re_n, ns512, ns_n,
-            _dft_mats_int8_back(), M["u_nyq"], M["y512col"], J,
-            mode=mode, F=F, emit_all=emit_all, interpret=interpret, hq=hq,
-        )
-        return out_i[:T], write_mask
-    out_f = EP.enhance_back_ola3_pallas(
-        re, im, re_n, ns512, ns_n,
-        M["UC512"], M["VS512"], M["u_nyq"], M["y512col"], J,
-        mode=mode, F=F, interpret=interpret,
-    )
-    out = out_f[:T].astype(jnp.int16)
-    if not emit_all:
-        out = jnp.where(write_mask[:, None], out, 0)
-    return out, write_mask
-
-
-def _enhance_fused(blocks, mode, emit_all, interpret=False, F: int = 512):
-    """Pallas-fused f32 fast path: forward rDFT + |X| in one kernel, gain +
-    symmetry-halved inverse in another (kernels.enhance_pallas); only the
-    global noise latch, VAD, and the OLA assembly stay in XLA.  Matches the
-    XLA fast path to bf16x3 rounding."""
-    from jeicyboodsp_tpu.kernels import enhance_pallas as EP
-
-    T = blocks.shape[0]
-    M = _dft_mats_aligned()
-    pad = (-T) % F
-    bp = (
-        jnp.concatenate([blocks, jnp.zeros((pad, BLOCK_LEN), blocks.dtype)], axis=0)
-        if pad else blocks
-    )
-    Tp = bp.shape[0]
-    prev = jnp.concatenate([jnp.zeros((1, BLOCK_LEN), bp.dtype), bp[:-1]], axis=0)
-    re, im, re_n, mag512, mag_n, sp = EP.enhance_fwd_pallas(
-        prev, bp, M["WC"], M["WS"], M["nyq"], M["w2"], F=F, interpret=interpret
-    )
-    speech = sp[:, 0] > 0.5  # in-kernel VAD (vad_flags semantics)
-    ns512, ns_n = _noise_latch_parts(speech, (mag512, mag_n))
-    head, w2, y512 = EP.enhance_back_pallas(
-        re, im, re_n, ns512, ns_n,
-        M["UC512"], M["VS512"], M["u_nyq"], M["y512col"],
-        mode=mode, F=F, interpret=interpret,
-    )
-    tail = jnp.concatenate([y512, jnp.flip(w2[:, 1:], axis=-1)], axis=-1)
-    tail_prev = jnp.concatenate([jnp.zeros((1, BLOCK_LEN), head.dtype), tail[:-1]], axis=0)
-    t_idx = jnp.arange(Tp)
-    valid = t_idx >= 1
-    ola = jnp.where(
-        valid[:, None], head + jnp.where((t_idx >= 2)[:, None], tail_prev, 0.0), 0.0
-    )
-    out = c_short_jnp(ola)
-    write_mask = t_idx >= 2
-    if not emit_all:
-        out = jnp.where(write_mask[:, None], out, 0)
-    return out[:T], write_mask[:T]
-
-
-def _enhance_fast_mxu(blocks, mode, dtype, precision, emit_all, int8=False,
-                      full=False, hq=True):
-    """The TPU speed path: 512-aligned GEMMs, symmetry-halved inverse,
-    closed-form noise latch.  Same math as the generic path (ratio
-    resynthesis) up to rounding; SNR contract asserted by tests/bench.
-
-    On a real accelerator backend with f32/HIGH (the mxu3 config) the two
-    GEMM halves run as fused Pallas kernels (:mod:`kernels.enhance_pallas`);
-    Mosaic is CPU-hostile, so other configs keep the plain-XLA form."""
-    if (
-        dtype == jnp.float32
-        and precision == jax.lax.Precision.HIGH
-        and jax.default_backend() != "cpu"
-    ):
-        # fused3 keeps the OLA (lane-flip + shift + add + c_short) in-kernel
-        # -- equals _enhance_fused to +-1 truncation flips, measured +7%
-        # (interleaved min-of-2x51 runs: 5.16-5.63 vs 4.87-5.05 G samples/s);
-        # int8 (engine mxu8) runs the forward rDFT as exact-int8-split GEMMs
-        # and the inverse from per-row-quantized spectra, both at 2x MAC
-        # rate.  (r4 negative result: ALSO quantizing the inter-kernel
-        # re/im/mag/ns planes to int16+rowscale measured ~15% SLOWER --
-        # 5.87 vs 6.79 G -- the in-kernel rowmax reduces + i16 packing cost
-        # more than the saved bandwidth; planes stay f32.)  mxu8f (full)
-        # goes further: the latch itself runs in-kernel and no plane ever
-        # reaches HBM.
-        if full:
-            return _enhance_fused_full(blocks, mode, emit_all, F=256, hq=hq)
-        return _enhance_fused3(blocks, mode, emit_all, F=512, int8=int8, hq=hq)
+def _enhance_fast_mxu(blocks, mode, dtype, precision, emit_all):
+    """The matmul-DFT speed path: 512-aligned GEMMs, symmetry-halved
+    inverse, closed-form noise latch.  Same math as the generic path (ratio
+    resynthesis) up to rounding; SNR contract asserted by tests/bench."""
     T = blocks.shape[0]
     M = _dft_mats_aligned()
     WC, WS = jnp.asarray(M["WC"], dtype), jnp.asarray(M["WS"], dtype)
@@ -631,7 +371,10 @@ def _enhance_fast_mxu(blocks, mode, dtype, precision, emit_all, int8=False,
 
     re = jnp.dot(frames, WC, precision=precision)  # (T, 512)
     im = jnp.dot(frames, WS, precision=precision)
-    re_n = jnp.dot(frames, nyq, precision=precision)  # (T,) Nyquist (im == 0)
+    # the rank-1 Nyquist terms are matrix-vector products: float32 dots at
+    # any engine (the CPU backend implements bf16x3 only for matmuls)
+    hi = jax.lax.Precision.HIGHEST
+    re_n = jnp.dot(frames, nyq, precision=hi)  # (T,) Nyquist (im == 0)
 
     P512 = re * re + im * im
     mag512 = jnp.sqrt(P512)
@@ -659,7 +402,7 @@ def _enhance_fast_mxu(blocks, mode, dtype, precision, emit_all, int8=False,
     u = jnp.dot(Yre, UC512, precision=precision) + Yre_n[:, None] * u_nyq
     v = jnp.dot(Yim, VS512, precision=precision)
     head = u - v  # y[0:512]
-    y512 = jnp.dot(Yre, y512col[:512], precision=precision) + Yre_n * y512col[512]
+    y512 = jnp.dot(Yre, y512col[:512], precision=hi) + Yre_n * y512col[512]
     tail = jnp.concatenate(  # y[512:1024] = [y512, flip(u + v)[1:]]
         [y512[:, None], jnp.flip((u + v)[:, 1:], axis=-1)], axis=-1
     )
@@ -702,18 +445,12 @@ def enhance_blocks(
     T = blocks.shape[0]
     fdtype = dtype
 
-    if fft_engine.startswith("mxu") and resynth == "ratio":
-        from jeicyboodsp_tpu.ops.dft import precision_of
+    from jeicyboodsp_tpu.ops.dft import check_engine, precision_of
 
-        # engine tiers: mxu8 = two-kernel int8 (hq); mxu8f = fully-fused
-        # single kernel (hq); mxu8t = fully-fused TURBO (r5b sweep: the
-        # fused-full turbo form measured 7.06 G vs 7.03 for the two-kernel
-        # turbo and 6.3 at F=512 -- F=256 fused-full is the fastest shape)
+    check_engine(fft_engine)
+    if fft_engine.startswith("mxu") and resynth == "ratio":
         return _enhance_fast_mxu(
-            blocks, mode, fdtype, precision_of(fft_engine), emit_all,
-            int8=fft_engine in ("mxu8", "mxu8t"),
-            full=fft_engine in ("mxu8f", "mxu8t"),
-            hq=(fft_engine != "mxu8t"),
+            blocks, mode, fdtype, precision_of(fft_engine), emit_all
         )
 
     prev = jnp.concatenate([jnp.zeros((1, BLOCK_LEN), blocks.dtype), blocks[:-1]], axis=0)
@@ -821,10 +558,8 @@ def run_stream(
         last = np.concatenate([x[T * BLOCK_LEN :], blocks[-1][rem:] if T else np.zeros(BLOCK_LEN - rem, np.int16)])
         blocks = np.concatenate([blocks, last[None]], axis=0)
     # mxu engines: ratio resynthesis is the documented fast-path contract
-    # (identical values to trig up to rounding, incl. the NaN cases) AND the
-    # gate for the fused kernels -- without it, --engine mxu8* silently fell
-    # back to plain-XLA GEMMs (r5 surface-verification catch: the CLI read
-    # 109 dB where the int8 engines measure ~84)
+    # (identical values to trig up to rounding, incl. the NaN cases) and
+    # selects the 512-aligned GEMM form
     resynth = "ratio" if fft_engine.startswith("mxu") else "trig"
     out, mask = enhance_blocks(
         jnp.asarray(blocks), mode=mode, dtype=dtype, use_assoc_scan=use_assoc_scan,

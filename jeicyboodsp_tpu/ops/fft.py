@@ -5,10 +5,9 @@ Reference: ``FFTAlgorithm_ver2.cpp`` (oracle: :mod:`jeicyboodsp_tpu.oracle.fftpr
 ``fft_radix2`` reproduces the reference algorithm's exact stage structure and
 truncated-PI twiddles as a batched JAX op (static shapes, the log2(N) stages
 unroll at trace time; each stage is one vectorized butterfly + twiddle over
-the whole batch -- VPU-friendly).  ``jnp.fft`` remains the production engine
-for the other pipelines; this module exists because the reference program's
-observable output (int16 roundtrip residue) depends on ITS algorithm, and as
-the self-contained FFT the Pallas kernel is benchmarked against.
+the whole batch).  ``jnp.fft`` remains the production engine for the other
+pipelines; this module exists because the reference program's observable
+output (int16 roundtrip residue) depends on ITS algorithm.
 """
 
 from __future__ import annotations
@@ -66,10 +65,8 @@ def fft_radix2(re, im, forward: bool = True, n: int | None = None, dtype=jnp.flo
 def roundtrip_blocks(blocks, dtype=jnp.float64, engine: str = "radix2"):
     """(T, 512) int16 -> (T, 512) int16 FFT->IFFT->/N->short, as the program.
 
-    engine="radix2" is the reference-structured algorithm (compat; accurate
-    on CPU, but this TPU backend executes the scatter-chain stages with
-    degraded f32 precision); engine="xla" uses jnp.fft (the TPU fast path,
-    +-1 LSB dither only); engine="fourstep" uses the MXU four-step kernel.
+    engine="radix2" is the reference-structured algorithm (compat);
+    engine="xla" uses jnp.fft (cuFFT on the GPU, +-1 LSB dither only).
     """
     re = blocks.astype(dtype)
     if engine == "xla":
@@ -77,13 +74,8 @@ def roundtrip_blocks(blocks, dtype=jnp.float64, engine: str = "radix2"):
         X = jnp.fft.fft(re.astype(ctype))
         y = jnp.fft.ifft(X).real
         return c_short_jnp(y)
-    if engine == "fourstep":
-        from jeicyboodsp_tpu.kernels.fft_pallas import fft_four_step
-
-        im0 = jnp.zeros_like(re)
-        Xr, Xi = fft_four_step(re, im0, BLOCK_LEN, forward=True, dtype=dtype)
-        yr, _ = fft_four_step(Xr, Xi, BLOCK_LEN, forward=False, dtype=dtype)
-        return c_short_jnp(yr / float(BLOCK_LEN))
+    if engine != "radix2":
+        raise ValueError(f"unknown fft engine {engine!r}; choices: ('radix2', 'xla')")
     im = jnp.zeros_like(re)
     Xr, Xi = fft_radix2(re, im, forward=True, n=BLOCK_LEN, dtype=dtype)
     yr, _ = fft_radix2(Xr, Xi, forward=False, n=BLOCK_LEN, dtype=dtype)

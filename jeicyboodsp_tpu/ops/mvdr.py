@@ -1,9 +1,9 @@
-"""2-mic MVDR beamformer as a batched TPU op.
+"""2-mic MVDR beamformer as a batched JAX op.
 
 Reference: ``BeamForming_MVDR_ver1.cpp`` (oracle:
 :mod:`jeicyboodsp_tpu.oracle.mvdr`).
 
-TPU-first design: every per-block stage is a pure function of (x[t-1], x[t])
+Every per-block stage is a pure function of (x[t-1], x[t])
 -- the VAD is stateless, the spatial-correlation pair is always the previous
 and current block, and the analysis frame's keep buffer is the previous
 block's first 511 samples -- so the only sequential element, the cumulative
@@ -51,8 +51,9 @@ def mvdr_blocks(blocks_l, blocks_r, d_time: float = 0.0, dtype=jnp.float64,
                 fft_engine: str = "xla", collapse: bool = True):
     """(T, 512) int16 per channel -> ((T, 512) int16, write_mask (T,)).
 
-    ``fft_engine="mxu3"`` (f32 only) evaluates the four real-input forward
-    FFTs and the non-Hermitian inverse as MXU matmuls (see ops/dft.py).
+    ``fft_engine="mxu"``/``"mxu3"`` (f32 only) evaluates the four
+    real-input forward FFTs and the non-Hermitian inverse as matmuls (see
+    ops/dft.py for each engine's dot algorithm).
 
     For the reference's actual steering (theta=0, ``:57-60`` -> d_time=0,
     c = [1, 1] at every bin) the fast engine uses a STRUCTURAL collapse:
@@ -64,17 +65,18 @@ def mvdr_blocks(blocks_l, blocks_r, d_time: float = 0.0, dtype=jnp.float64,
     energies (Parseval again: no FFT needed), the overwrite-sequencing
     quirk is a no-op for real weights, and the spectral round-trip
     commutes with the scalar mix: y = w0*frame_l + w1*frame_r.  The whole
-    beamformer becomes VPU elementwise work -- no transforms at all.
+    beamformer becomes elementwise work -- no transforms at all.
     ``d_time`` is static so the collapse is a trace-time decision;
     ``collapse=False`` forces the spectral path even at theta=0 (used by
     the tests pinning collapsed == spectral on identical inputs)."""
     T = blocks_l.shape[0]
     fdtype = dtype
     ctype = jnp.complex128 if dtype == jnp.float64 else jnp.complex64
+    from jeicyboodsp_tpu.ops import dft as mdft
+
+    mdft.check_engine(fft_engine)
     use_mxu = fft_engine.startswith("mxu")
     if use_mxu:
-        from jeicyboodsp_tpu.ops import dft as mdft
-
         prec = mdft.precision_of(fft_engine)
 
     speech = vad_energy_flags(blocks_l, fdtype)

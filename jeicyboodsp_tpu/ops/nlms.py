@@ -3,17 +3,17 @@
 Reference: ``NormalLMS.cpp`` / ``BNLMS.cpp`` (oracle:
 :mod:`jeicyboodsp_tpu.oracle.nlms`).
 
-TPU mapping:
+Device mapping:
 
 - Per-sample NLMS (``nlms_apply``) is inherently sequential (the coefficient
   vector updates every sample), so it is a ``lax.scan`` over samples with a
   256-tap carry; batch across independent streams with ``vmap`` for
-  throughput.  Inner dot products ride the VPU.
+  throughput.
 
-- Block NLMS (``bnlms_apply``) is the MXU-shaped variant: per block the
+- Block NLMS (``bnlms_apply``) is the matmul-shaped variant: per block the
   filtering pass is a (1024, 128) Toeplitz-window matmul against the frozen
   coefficients, and the gradient accumulation is the transposed matmul of the
-  same window matrix against the weighted errors -- two MXU calls per block,
+  same window matrix against the weighted errors -- two matmuls per block,
   sequential only in the block-to-block coefficient carry.  The double-talk
   gate's cross-correlation is one FFT-sized batched correlation.
 
@@ -26,7 +26,7 @@ Deliberately NOT implemented: the reference's mu_max eigenvalue bound
 builds the input autocorrelation Toeplitz matrix but the eigenvalue read is
 itself ``#if 0``'d out, so dTemp stays 0 and it would return inf; no caller
 exists.  The shipped behavior uses the fixed BNLMS_MU step, which is what we
-reproduce.  A working step bound on TPU would be
+reproduce.  A working step bound would be
 ``2 / max_eig(Toeplitz(autocorr))`` via ``jnp.linalg.eigvalsh``; add it only
 if a future reference revision enables the block.
 """
@@ -51,6 +51,10 @@ from jeicyboodsp_tpu.oracle.nlms import (
     NLMS_TAPS,
 )
 from jeicyboodsp_tpu.utils.cnum import c_short_jnp
+
+# float32 dots stay float32 on the GPU (its default f32 dot is TF32)
+_HI = jax.lax.Precision.HIGHEST
+_mm = functools.partial(jnp.matmul, precision=_HI)
 
 
 def nlms_init_state(dtype=jnp.float64):
@@ -87,10 +91,10 @@ def nlms_apply(x, ref, state, dtype=jnp.float64, compat: bool = True):
         xi, ri = inp
         w = jnp.concatenate([hist, xi[None]]).astype(dtype)  # u[i..i+255]
         # coeff applied reversed against the window (NormalLMS.cpp:113)
-        y_acc = jnp.dot(c[::-1], w)
+        y_acc = jnp.dot(c[::-1], w, precision=_HI)
         y = c_short_jnp(y_acc).astype(jnp.int32)
         e = (ri - y).astype(dtype)
-        norm = jnp.dot(w, w)
+        norm = jnp.dot(w, w, precision=_HI)
         g = (2.0 * mu) * e / (norm + eps)
         c = c + g * (w if compat else w[::-1])
         new_hist = jnp.concatenate([hist[1:], xi[None]])
@@ -115,8 +119,7 @@ def _toeplitz_windows(u, taps):
     """(N + taps - 1,) -> (N, taps) sliding windows u[i..i+taps-1].
 
     Built from `taps` STATIC slices (one per column) rather than a gather:
-    TPU lowers the (N, taps) gather into serialized dynamic fetches, while
-    static slices are pure data movement that XLA fuses (same fix as the
+    static slices are pure data movement that XLA fuses (same choice as the
     MFCC framing path)."""
     n = u.shape[0] - taps + 1
     return jnp.stack([jax.lax.slice_in_dim(u, k, k + n) for k in range(taps)], axis=1)
@@ -147,14 +150,14 @@ def bnlms_apply_block(x, ref, state, dtype=jnp.float64):
     u = jnp.concatenate([state["keep_in"], x.astype(jnp.int32)])
     r = jnp.concatenate([state["keep_ref"], ref.astype(jnp.int32)])
     W = _toeplitz_windows(u.astype(dtype), BNLMS_TAPS)  # (1024, 128)
-    y_acc = W @ c[::-1]  # MXU matmul
+    y_acc = _mm(W, c[::-1])
     y = c_short_jnp(y_acc).astype(jnp.int32)
     e_int = ref.astype(jnp.int32) - y
     err = c_short_jnp(e_int.astype(dtype))
 
     norm = jnp.sum(W * W, axis=1)  # per-sample window energy
     g = (2.0 * BNLMS_MU) * e_int.astype(dtype) / (norm + BNLMS_EPS)
-    grad = W.T @ g  # (128,) transposed MXU matmul
+    grad = _mm(W.T, g)  # (128,)
     no_dt = ~_double_talk(u, r, dtype)
     c = jnp.where(no_dt, c + grad / BLOCK_LEN, c)
 
@@ -179,8 +182,63 @@ def bnlms_apply(x_blocks, ref_blocks, state, dtype=jnp.float64):
     return est, err, state
 
 
+_GATE_M = 2176  # any m >= 1151 + 1023 gives linear correlation; no radix need
+
+
+@functools.lru_cache(maxsize=1)
+def _gate_bases():
+    """Matmul-DFT bases for the double-talk correlation (host constants):
+    forward (1151, 1089) cos/sin planes over the nonzero input rows only,
+    inverse (1089, 1024) with the irfft weights folded in."""
+    m = _GATE_M
+    nbin = m // 2 + 1
+    i = np.arange(BLOCK_LEN + BNLMS_KEEP)[:, None] * np.arange(nbin)[None, :]
+    ang = -2.0 * np.pi * i / m
+    Fc = np.cos(ang).astype(np.float32)
+    Fs = np.sin(ang).astype(np.float32)
+    wk = np.full(nbin, 2.0)
+    wk[0] = wk[-1] = 1.0
+    kl = np.arange(nbin)[:, None] * np.arange(BLOCK_LEN)[None, :]
+    ang2 = 2.0 * np.pi * kl / m
+    Ic = (wk[:, None] * np.cos(ang2) / m).astype(np.float32)
+    Is = (wk[:, None] * np.sin(ang2) / m).astype(np.float32)
+    return Fc, Fs, Ic, Is
+
+
+def _bnlms_gates(xp, rp):
+    """Double-talk gate per (stream, block), vectorized (BNLMS.cpp:164-186).
+
+    corr[k] = sum_i u[i]*r[i+k] / (2*BLOCK-k) over the 1151-sample
+    processing buffers (keep(127) + block), out-of-bounds reads defined as
+    zero (see oracle module docstring); update fires iff max_k corr[k] > 0.
+    Pure function of the inputs, so it is computed once for every block of
+    every stream as float32 matmul-DFT GEMMs.  xp, rp: (B, T) with T a
+    multiple of 1024; returns (B, T // 1024) float32 0/1 flags.  The sign
+    decision matches the f64 oracle except when max|corr| is within float32
+    rounding of zero."""
+    B, T = xp.shape
+    tb = T // BLOCK_LEN
+    xb = xp.reshape(B, tb, BLOCK_LEN)
+    rb = rp.reshape(B, tb, BLOCK_LEN)
+
+    def with_keep(blocks):
+        halo = jnp.pad(blocks, ((0, 0), (1, 0), (0, 0)))[:, :-1, BLOCK_LEN - BNLMS_KEEP :]
+        return jnp.concatenate([halo, blocks], axis=-1)  # (B, tb, 1151)
+
+    u = with_keep(xb).reshape(B * tb, BLOCK_LEN + BNLMS_KEEP)
+    r = with_keep(rb).reshape(B * tb, BLOCK_LEN + BNLMS_KEEP)
+    Fc, Fs, Ic, Is = _gate_bases()
+    Ur, Ui = _mm(u, Fc), _mm(u, Fs)
+    Rr, Ri = _mm(r, Fc), _mm(r, Fs)
+    Pr = Ur * Rr + Ui * Ri  # conj(U) * R
+    Pi = Ur * Ri - Ui * Rr
+    corr = _mm(Pr, Ic) - _mm(Pi, Is)  # (B*tb, 1024) linear correlation lags
+    corr = corr / (2.0 * BLOCK_LEN - jnp.arange(BLOCK_LEN, dtype=jnp.float32))
+    return (jnp.max(corr, axis=-1) > 0.0).astype(jnp.float32).reshape(B, tb)
+
+
 def bnlms_affine_elements(x_blocks, ref_blocks, dtype=jnp.float32,
-                          keep_in=None, keep_ref=None):
+                          keep_in=None, keep_ref=None, chunk: int = 64):
     """Per-block affine maps (A_b, v_b) of the BNLMS coefficient recursion.
 
     SURVEY §5 flagged BNLMS's per-block update as "already the
@@ -216,6 +274,10 @@ def bnlms_affine_elements(x_blocks, ref_blocks, dtype=jnp.float32,
     when the stream starts here) -- both the 127-sample Toeplitz keep and
     the double-talk gate's halo derive from them, so a time-sharded caller
     only needs a 1-block ppermute halo.
+
+    ``chunk``: blocks per lax.map step of the A/v build (the largest
+    divisor of T not above it); bounds the live (chunk, 1024, 128) window
+    temps without changing any value.
     """
     T = x_blocks.shape[0]
     pz = jnp.zeros((BLOCK_LEN,), jnp.int32)
@@ -225,23 +287,19 @@ def bnlms_affine_elements(x_blocks, ref_blocks, dtype=jnp.float32,
     ri = ref_blocks.astype(jnp.int32)
     # windows are continuous across blocks (the keep IS the previous tail),
     # so W builds from slice-stacks over the flat signal.  The A/v build
-    # runs as a lax.map over chunks of blocks: a single whole-T einsum
-    # materialized (T, 1024, 1)-shaped broadcasts that TPU pads 128x in
-    # the lane dim (64 GB of temps at T=1024); chunking bounds the live
-    # set to ~chunk x 64 MB.
+    # runs as a lax.map over chunks of CH blocks, which bounds the live
+    # set of the (CH, 1024, 128) window temps.
     flat = jnp.concatenate([pxb[BLOCK_LEN - BNLMS_KEEP :], xi.reshape(-1)]).astype(dtype)
     # the double-talk gate is input-only; reuse the batched matmul-DFT gate
     # (prepend the halo block so the first local gate sees its true keep,
     # then drop the halo block's own gate)
-    from jeicyboodsp_tpu.kernels.nlms_pallas import _bnlms_gates
-
     gates = _bnlms_gates(
         jnp.concatenate([pxb[None], xi], axis=0).reshape(1, -1).astype(jnp.float32),
         jnp.concatenate([prb[None], ri], axis=0).reshape(1, -1).astype(jnp.float32),
     )[0, 1:].astype(dtype)  # (T,)
     eta = jnp.asarray(2.0 * BNLMS_MU / BLOCK_LEN, dtype)
-    hi = jax.lax.Precision.HIGH
-    CH = next(c for c in (64, 32, 16, 8, 4, 2, 1) if T % c == 0)
+    hi = _HI
+    CH = next(c for c in range(min(chunk, T), 0, -1) if T % c == 0)
     segs = jnp.stack(  # (T/CH, CH*1024 + 127) overlapping flat segments
         [flat[c * CH * BLOCK_LEN : (c + 1) * CH * BLOCK_LEN + BNLMS_KEEP]
          for c in range(T // CH)]
@@ -272,15 +330,15 @@ def affine_combine(l, r):
     """(A, v) monoid: r AFTER l.  Identity: (I, 0)."""
     Al, vl = l
     Ar, vr = r
-    hi = jax.lax.Precision.HIGH
+    hi = _HI
     return (
         jnp.einsum("...ij,...jk->...ik", Ar, Al, precision=hi),
         jnp.einsum("...ij,...j->...i", Ar, vl, precision=hi) + vr,
     )
 
 
-@functools.partial(jax.jit, static_argnames=("dtype",))
-def bnlms_apply_timeparallel(x_blocks, ref_blocks, dtype=jnp.float32):
+@functools.partial(jax.jit, static_argnames=("dtype", "chunk"))
+def bnlms_apply_timeparallel(x_blocks, ref_blocks, dtype=jnp.float32, chunk: int = 64):
     """Block-parallel BNLMS over (T, 1024) far/near blocks: O(log T) depth.
 
     See :func:`bnlms_affine_elements` for the formulation and its (small,
@@ -288,12 +346,11 @@ def bnlms_apply_timeparallel(x_blocks, ref_blocks, dtype=jnp.float32):
     (est, err) int16 -- same output contract as :func:`bnlms_apply`
     (outputs are c_short-quantized; only the recursion is linearized).
     """
-    A, v, W, _ = bnlms_affine_elements(x_blocks, ref_blocks, dtype=dtype)
+    A, v, W, _ = bnlms_affine_elements(x_blocks, ref_blocks, dtype=dtype, chunk=chunk)
     _, v_incl = jax.lax.associative_scan(affine_combine, (A, v))
     # c_b = state BEFORE block b: exclusive prefix (c_0 = 0)
     c = jnp.concatenate([jnp.zeros((1, BNLMS_TAPS), dtype), v_incl[:-1]], axis=0)
-    y = jnp.einsum("bti,bi->bt", W[:, :, ::-1], c,
-                   precision=jax.lax.Precision.HIGH)
+    y = jnp.einsum("bti,bi->bt", W[:, :, ::-1], c, precision=_HI)
     y_s = c_short_jnp(y)
     e = ref_blocks.astype(jnp.int32) - y_s.astype(jnp.int32)
     return y_s.astype(jnp.int16), c_short_jnp(e.astype(dtype)).astype(jnp.int16)
@@ -362,21 +419,12 @@ def run_nlms_stream(x, ref, dtype=jnp.float64, use_native=True, verbose=False,
     return np.asarray(est).reshape(xb.shape)[1:].reshape(-1), np.asarray(err).reshape(xb.shape)[1:].reshape(-1)
 
 
-def run_bnlms_stream(x, ref, dtype=jnp.float64, use_native=True, use_pallas=False):
-    """use_pallas=True routes through the df32 TPU kernel
-    (:func:`jeicyboodsp_tpu.kernels.nlms_pallas.bnlms_pallas`) -- the
-    bit-exact-on-TPU compat path; default stays the native f64 CPU kernel."""
+def run_bnlms_stream(x, ref, dtype=jnp.float64, use_native=True):
+    """Host convenience matching oracle.run_bnlms output framing; f64 compat
+    prefers the native C++ kernel (bit-exact), otherwise the JAX scan."""
     n = min(len(x), len(ref))
     xb = _blockify(x[:n], BLOCK_LEN)
     rb = _blockify(ref[:n], BLOCK_LEN)
-    if use_pallas:
-        from jeicyboodsp_tpu.kernels.nlms_pallas import bnlms_pallas
-
-        if xb.shape[0] == 0:
-            return np.zeros(0, np.int16), np.zeros(0, np.int16)
-        est, err = bnlms_pallas(jnp.asarray(xb.reshape(1, -1)), jnp.asarray(rb.reshape(1, -1)))
-        # first block not written (BNLMS.cpp warm-up)
-        return np.asarray(est)[0, BLOCK_LEN:], np.asarray(err)[0, BLOCK_LEN:]
     if use_native and dtype == jnp.float64:
         from jeicyboodsp_tpu import native
 

@@ -5,7 +5,7 @@ These are the framework's two communication primitives (SURVEY §5
 
 - :func:`left_halo` -- the DSP analog of ring-attention neighbor exchange:
   each shard receives the trailing ``width`` elements of its LEFT neighbor
-  (the overlap-save / STFT history), via ``jax.lax.ppermute`` over ICI.
+  (the overlap-save / STFT history), via ``jax.lax.ppermute``.
 
 - :func:`sharded_associative_scan` -- an exact inclusive scan of a monoid
   over the time axis when the data is block-sharded: local
@@ -66,11 +66,7 @@ def sharded_associative_scan(combine, elems, axis_name: str, identity, varying_a
     idx = jax.lax.axis_index(axis_name)
     n = jax.lax.axis_size(axis_name)
     vaxes = tuple(varying_axes) if varying_axes is not None else (axis_name,)
-    _pvary = getattr(jax.lax, "pcast", None)
-    if _pvary is not None:
-        mark_varying = lambda a: _pvary(jnp.asarray(a)[None], vaxes, to="varying")
-    else:  # older jax
-        mark_varying = lambda a: jax.lax.pvary(jnp.asarray(a)[None], vaxes)
+    mark_varying = lambda a: jax.lax.pcast(jnp.asarray(a)[None], vaxes, to="varying")
     ident = jax.tree_util.tree_map(mark_varying, identity)
 
     def fold(i, acc):

@@ -1,14 +1,16 @@
 """Device-mesh construction for the framework's sharding axes.
 
 The reference is single-threaded (SURVEY §2: no parallelism anywhere); the
-TPU framework introduces two first-class axes:
+framework introduces two first-class axes:
 
 - ``data``: independent audio streams / classes / files (pure batch
   parallelism, no communication);
 - ``time``: the block/sequence axis of ONE stream.  DSP state dependencies
   along time are bounded halos (overlap-save history, STFT frames) plus
   associative prefix states (noise latch, MVDR covariance), so time-sharding
-  communicates only halo ppermutes and small prefix all_gathers over ICI.
+  communicates only halo ppermutes and small prefix all_gathers between
+devices (NVLink on a multi-GPU host; every device reaches every other at
+the same rate, so no mesh assumes a torus).
 """
 
 from __future__ import annotations
@@ -19,12 +21,12 @@ from jax.sharding import Mesh
 
 
 def init_distributed(coordinator: str | None = None, num_processes: int | None = None, process_id: int | None = None):
-    """Initialize multi-host JAX (DCN) when running on a pod slice.
+    """Initialize multi-host JAX when running across several hosts.
 
     On a single host this is a no-op.  Call before any jax API on each host:
-    afterwards ``jax.devices()`` spans the slice and ``make_mesh`` builds
-    pod-wide meshes (data/time axes laid out so halo ppermutes ride ICI
-    within a host's chips and only the chunk boundaries cross DCN).
+    afterwards ``jax.devices()`` spans every host and ``make_mesh`` builds
+    meshes over all of them (data/time axes laid out so halo ppermutes stay
+    within a host's devices and only the chunk boundaries cross hosts).
     """
     if coordinator is None:
         return  # single-host

@@ -28,6 +28,10 @@ from jeicyboodsp_tpu.ops import mvdr as MV
 from jeicyboodsp_tpu.parallel.halo import left_halo, sharded_associative_scan
 from jeicyboodsp_tpu.utils.cnum import c_short_jnp
 
+# float32 dots stay float32 on the GPU (its default f32 dot is TF32)
+_HI = jax.lax.Precision.HIGHEST
+_mm = functools.partial(jnp.matmul, precision=_HI)
+
 
 def enhance_sharded(blocks, mesh, mode: str = "wiener", dtype=jnp.float64, axis: str = "time"):
     """(T, 512) int16 (T divisible by mesh axis size) -> (out, write_mask).
@@ -224,7 +228,7 @@ def bnlms_sharded(x_blocks, ref_blocks, mesh, dtype=jnp.float64, axis: str = "da
     sharded over ``axis``.  Each AEC session is an independent recursion
     (BNLMS.cpp:103-162 keeps per-session statics), so the natural multi-chip
     axis is sessions: shard_map runs the per-device vmap'd block scan with
-    zero collectives -- ICI stays idle, DCN only moves inputs/outputs.
+    zero collectives -- only inputs and outputs move between devices.
     Exact equal to vmapped ops.nlms.bnlms_apply (asserted in
     tests/test_sharded.py).  Returns (est, err) as (B, T, 1024) int16."""
     from jeicyboodsp_tpu.ops import nlms as NL
@@ -240,7 +244,7 @@ def bnlms_sharded(x_blocks, ref_blocks, mesh, dtype=jnp.float64, axis: str = "da
         st = jax.vmap(lambda _: NL.bnlms_init_state(dtype))(jnp.arange(xl.shape[0]))
         # the zero init state is device-invariant; mark it varying over the
         # mesh axis so the scan carry types match (shard_map vma rules)
-        st = jax.tree.map(lambda a: jax.lax.pvary(a, (axis,)), st)
+        st = jax.tree.map(lambda a: jax.lax.pcast(a, (axis,), to="varying"), st)
         est, err, _ = jax.vmap(
             functools.partial(NL.bnlms_apply, dtype=dtype)
         )(xl, rl, st)
@@ -289,7 +293,7 @@ def bnlms_sharded_time(x_blocks, ref_blocks, mesh, dtype=jnp.float32,
         prev_v = left_halo(v_incl, 1, axis, fill=0)[0]
         c = jnp.concatenate([prev_v[None], v_incl[:-1]], axis=0)
         y = jnp.einsum("bti,bi->bt", W[:, :, ::-1], c,
-                       precision=jax.lax.Precision.HIGH)
+                       precision=jax.lax.Precision.HIGHEST)
         y_s = c_short_jnp(y)
         e = rl.astype(jnp.int32) - y_s.astype(jnp.int32)
         return y_s.astype(jnp.int16), c_short_jnp(e.astype(dtype)).astype(jnp.int16)
@@ -315,7 +319,7 @@ def nlms_sharded(x, ref, mesh, dtype=jnp.float64, axis: str = "data",
     )
     def run(xl, rl):
         st = jax.vmap(lambda _: NL.nlms_init_state(dtype))(jnp.arange(xl.shape[0]))
-        st = jax.tree.map(lambda a: jax.lax.pvary(a, (axis,)), st)
+        st = jax.tree.map(lambda a: jax.lax.pcast(a, (axis,), to="varying"), st)
         est, err, _ = jax.vmap(
             functools.partial(NL.nlms_apply, dtype=dtype, compat=compat)
         )(xl, rl, st)
@@ -415,7 +419,7 @@ def mvdr_sharded(blocks_l, blocks_r, mesh, d_time=0.0, dtype=jnp.float64, axis: 
 
 
 def mvdr_sharded_bins(blocks_l, blocks_r, mesh, d_time=0.0, axis: str = "model"):
-    """Frequency-bin tensor-parallel MVDR (the MXU-DFT formulation).
+    """Frequency-bin tensor-parallel MVDR (the matmul-DFT formulation).
 
     With the DFT evaluated as matmuls (ops/dft.py), the frequency axis
     shards exactly like a transformer MLP's hidden axis:
@@ -449,7 +453,7 @@ def mvdr_sharded_bins(blocks_l, blocks_r, mesh, d_time=0.0, axis: str = "model")
     C = np.concatenate([Ch, Ch[:, -2:0:-1]], axis=1)  # cos even under k -> n-k
     S = np.concatenate([Sh, -Sh[:, -2:0:-1]], axis=1)
     IC, IS = mdft._icdft_real_mats(n)
-    prec = jax.lax.Precision.HIGH
+    prec = jax.lax.Precision.HIGHEST
 
     @functools.partial(
         jax.shard_map,
@@ -558,7 +562,7 @@ def em_step_sharded(frames, mask, alpha, mean, cov, mesh, axis: str = "data"):
     The E-step responsibilities are local; the M-step sufficient statistics
     (responsibility sums, weighted feature sums, weighted scatter matrices)
     are the reference algorithm's only global reductions -- here explicit
-    ``psum`` over ICI (SURVEY §5).  Exactly equals models.gmm.em_step up to
+    ``psum`` across devices (SURVEY §5).  Exactly equals models.gmm.em_step up to
     summation order.
     """
     import jax.numpy as jnp
@@ -582,13 +586,13 @@ def em_step_sharded(frames, mask, alpha, mean, cov, mesh, axis: str = "data"):
 
         n = jax.lax.psum(jnp.sum(m_loc.astype(f_loc.dtype)), axis)
         w_sum = jax.lax.psum(jnp.sum(w, axis=0), axis)  # (4,)
-        wx = jax.lax.psum(w.T @ f_loc, axis)  # (4, 12)
+        wx = jax.lax.psum(_mm(w.T, f_loc), axis)  # (4, 12)
 
         n_of_key = alpha_r + w_sum
         alpha_new = n_of_key / n
         mean_new = (mean_r + wx) / n_of_key[:, None]
         diff = f_loc[:, None, :] - mean_new[None, :, :]
-        scatter = jax.lax.psum(jnp.einsum("nk,nki,nkj->kij", w, diff, diff), axis)
+        scatter = jax.lax.psum(jnp.einsum("nk,nki,nkj->kij", w, diff, diff, precision=_HI), axis)
         cov_new = scatter / n_of_key[:, None, None]
         return alpha_new, mean_new, cov_new
 
@@ -608,7 +612,7 @@ def geq_sharded(x, b, a, mesh, dtype=jnp.float64, axis: str = "time"):
 
     x: (N,) samples, N divisible by the mesh axis size.  Exactly equals
     ``geq_apply_fast`` in f64 (f32 overflows at the 44 Hz shelf's near-unity
-    pole on either path; the stable f32 compat path is the Pallas kernel).
+    pole on either path).
     """
     from jeicyboodsp_tpu.ops.geq import TOTAL_BANDS
 
@@ -621,7 +625,7 @@ def geq_sharded(x, b, a, mesh, dtype=jnp.float64, axis: str = "time"):
     def combine(l, r):
         Al, bl = l
         Ar, br = r
-        return Ar @ Al, jnp.einsum("...ij,...j->...i", Ar, bl) + br
+        return _mm(Ar, Al), jnp.einsum("...ij,...j->...i", Ar, bl, precision=_HI) + br
 
     @functools.partial(jax.shard_map, mesh=mesh, in_specs=P(axis), out_specs=P(axis))
     def run(xl):

@@ -46,6 +46,10 @@ from jeicyboodsp_tpu.oracle.mfcc import KEEP_LEN, WINDOW_LEN
 from jeicyboodsp_tpu.ops.features import dct_lifter_matrix, mel_matrix, mfcc_frames
 from jeicyboodsp_tpu.parallel.halo import left_halo
 
+# float32 dots stay float32 on the GPU (its default f32 dot is TF32)
+_HI = jax.lax.Precision.HIGHEST
+_mm = functools.partial(jnp.matmul, precision=_HI)
+
 
 def _mel_dct(dtype):
     npdtype = np.float32 if dtype == jnp.float32 else np.float64
@@ -77,10 +81,7 @@ def _vary(x, axes):
     loop carries must enter with the same varying-type they exit with)."""
     if not axes:
         return x
-    pc = getattr(jax.lax, "pcast", None)
-    if pc is not None:
-        return pc(x, tuple(axes), to="varying")
-    return jax.lax.pvary(x, tuple(axes))
+    return jax.lax.pcast(x, tuple(axes), to="varying")
 
 
 def _kmeans_psum(frames, mask, init_means, data_axis, extra_axes=()):
@@ -111,7 +112,7 @@ def _kmeans_psum(frames, mask, init_means, data_axis, extra_axes=()):
         count = count + 1
         keep_going = (count == 1) | (jnp.abs(cost - cost_before) >= THRESHOLD_OF_DISTANCE)
         cnt = jax.lax.psum(jnp.sum(sel, axis=0).astype(dtype), data_axis)
-        sums = jax.lax.psum(sel.astype(dtype).T @ frames, data_axis)
+        sums = jax.lax.psum(_mm(sel.astype(dtype).T, frames), data_axis)
         new_means = jnp.where(cnt[:, None] > 0, sums / jnp.maximum(cnt, 1.0)[:, None], 0.0)
         means_next = jnp.where(keep_going, new_means, means)
         return (count, ~keep_going, sel, means_next, jnp.where(keep_going, cost, cost_before))
@@ -128,7 +129,7 @@ def _kmeans_psum(frames, mask, init_means, data_axis, extra_axes=()):
     cnt = jax.lax.psum(jnp.sum(sel, axis=0).astype(dtype), data_axis)
     diff = frames[:, None, :] - means[None, :, :]
     w = sel.astype(dtype)
-    scatter = jax.lax.psum(jnp.einsum("nk,nki,nkj->kij", w, diff, diff), data_axis)
+    scatter = jax.lax.psum(jnp.einsum("nk,nki,nkj->kij", w, diff, diff, precision=_HI), data_axis)
     return means, scatter / cnt[:, None, None]
 
 
@@ -146,9 +147,9 @@ def _em_step_psum(frames, mask, alpha, mean, cov, data_axis):
 
     n_of_key = alpha + jax.lax.psum(jnp.sum(w, axis=0), data_axis)
     alpha_new = n_of_key / n
-    mean_new = (mean + jax.lax.psum(w.T @ frames, data_axis)) / n_of_key[:, None]
+    mean_new = (mean + jax.lax.psum(_mm(w.T, frames), data_axis)) / n_of_key[:, None]
     diff = frames[:, None, :] - mean_new[None, :, :]
-    scatter = jax.lax.psum(jnp.einsum("nk,nki,nkj->kij", w, diff, diff), data_axis)
+    scatter = jax.lax.psum(jnp.einsum("nk,nki,nkj->kij", w, diff, diff, precision=_HI), data_axis)
     return alpha_new, mean_new, scatter / n_of_key[:, None, None]
 
 

@@ -1,8 +1,10 @@
 """Profiling + roofline estimation (SURVEY §5 tracing/profiling).
 
-``trace`` wraps ``jax.profiler`` for device traces; ``roofline`` computes the
-statically-known FLOP/byte counts of the hot kernels (per processed block)
-so measured samples/s can be placed against the v5e HBM/MXU roofs.
+``trace`` wraps ``jax.profiler`` for device traces; the ``*_roofline``
+functions give the statically-known operation and byte counts of each
+implemented algorithm (per processed block), so a measured samples/s can be
+placed against a card's published peaks.  Peaks live in one table keyed by
+``device_kind``; a device that is not in it is an error, never a default.
 """
 
 from __future__ import annotations
@@ -11,6 +13,35 @@ from contextlib import contextmanager
 from dataclasses import dataclass
 
 import numpy as np
+
+# Published dense peaks (no sparsity) per device_kind.  Units: operations/s
+# per compute class, bytes/s of device memory.
+#   NVIDIA H100 SXM5 80GB (device_kind "NVIDIA H100 80GB HBM3"): NVIDIA H100
+#   Tensor Core GPU datasheet -- 989 TFLOP/s bf16, 495 TF32, 1,979 TOP/s
+#   int8 (tensor cores), 67 TFLOP/s float32 and 34 TFLOP/s float64 outside
+#   the tensor cores, 3.35 TB/s HBM3.  These assume the 700 W power limit.
+PEAKS = {
+    "NVIDIA H100 80GB HBM3": {
+        "bf16": 989e12,
+        "tf32": 495e12,
+        "int8": 1979e12,
+        "fp32": 67e12,
+        "fp64": 34e12,
+        "hbm_bytes_per_s": 3.35e12,
+        "source": "NVIDIA H100 Tensor Core GPU datasheet (SXM5, dense, 700 W)",
+    },
+}
+
+
+def peaks_for(device_kind: str) -> dict:
+    """The peaks row for ``device_kind``; raises KeyError for unknown cards."""
+    try:
+        return PEAKS[device_kind]
+    except KeyError:
+        raise KeyError(
+            f"no published peaks for device_kind {device_kind!r}; "
+            f"known: {sorted(PEAKS)}"
+        ) from None
 
 
 @contextmanager
@@ -26,24 +57,25 @@ def trace(logdir: str):
 
 @dataclass
 class Roofline:
+    """Operations and device-memory bytes per block of ``samples_per_block``.
+
+    ``unit`` names the compute class the operations run on (a key of
+    :data:`PEAKS`): "fp32" for float32 work outside the tensor cores
+    (elementwise, FFTs, HIGHEST-precision dots), "bf16" for tensor-core
+    bf16 products (a bf16x3 dot counts 3 products per MAC), "int8" for
+    s8 x s8 -> s32 dots.
+    """
+
     flops_per_block: float
     hbm_bytes_per_block: float
     samples_per_block: int
-    # Which compute unit the FLOPs land on.  "mxu" counts HARDWARE bf16
-    # flops (multiply each logical GEMM flop by its pass count: bf16x3
-    # precision=HIGH -> x3, bf16x6 HIGHEST -> x6) against the v5e MXU peak
-    # ~394 TF/s bf16.  "vpu" counts f32 element-ops (moves/adds/mults all
-    # occupy issue slots) against ~3.7 TF/s (8x128 lanes, FMA, ~940 MHz).
-    unit: str = "mxu"
+    unit: str = "fp32"
 
-    PEAKS = {"mxu": 3.94e14, "vpu": 3.7e12}
-
-    def bound(self, peak_flops: float | None = None, peak_bw: float = 8.2e11) -> dict:
-        """Samples/s ceilings on one v5e (HBM ~820 GB/s)."""
-        if peak_flops is None:
-            peak_flops = self.PEAKS[self.unit]
-        t_compute = self.flops_per_block / peak_flops
-        t_mem = self.hbm_bytes_per_block / peak_bw
+    def bound(self, device_kind: str) -> dict:
+        """Samples/s ceilings on ``device_kind`` at its published peaks."""
+        peaks = peaks_for(device_kind)
+        t_compute = self.flops_per_block / peaks[self.unit]
+        t_mem = self.hbm_bytes_per_block / peaks["hbm_bytes_per_s"]
         t = max(t_compute, t_mem)
         return {
             "compute_bound_samples_per_s": self.samples_per_block / t_compute,
@@ -52,289 +84,126 @@ class Roofline:
             "bottleneck": "compute" if t_compute > t_mem else "memory",
         }
 
-    def pct_of_roof(self, measured_sps: float) -> float:
+    def pct_of_roof(self, measured_sps: float, device_kind: str) -> float:
         """Measured samples/s as a % of this model's speed of light."""
-        sol = self.bound()["speed_of_light_samples_per_s"]
+        sol = self.bound(device_kind)["speed_of_light_samples_per_s"]
         return 100.0 * measured_sps / sol
 
 
 def enhance_chain_roofline(block=512, fft=1024, dtype_bytes=4) -> Roofline:
-    """XLA-FFT engine, per 512-sample block: one rfft + one irfft
-    (5 N log2 N vector flops each), VAD + gain elementwise, ~6 HBM passes
-    over the frame.  (The XLA FFT is VPU code, not MXU.)"""
+    """``jnp.fft`` engine, per 512-sample block: one rfft + one irfft
+    (5 N log2 N flops each), VAD + gain elementwise, ~6 device-memory
+    passes over the frame."""
     nlog = fft * np.log2(fft)
     flops = 2 * 5 * nlog + 30 * fft
     bytes_ = 6 * fft * dtype_bytes
-    return Roofline(flops, bytes_, block, unit="vpu")
+    return Roofline(flops, bytes_, block, unit="fp32")
 
 
-def enhance_mxu3_roofline(block=512, fft=1024, passes=3) -> Roofline:
-    """Fused-Pallas mxu3 engine (kernels/enhance_pallas), per block: one
-    window-folded forward rDFT GEMM (1024x(2x513) MACs) + one
-    symmetry-halved inverse GEMM (~1024x1024 MACs), bf16x3 -> x3 hardware
-    passes.  This reproduces docs/PERFORMANCE.md's ~1.0 ms floor at
-    T=16384 (8.4 M samples): 24 M hw flops/block / 394 TF/s ~= 61 ns."""
-    macs = fft * (2 * (fft // 2 + 1)) + fft * fft
-    flops = passes * 2 * macs
-    bytes_ = 3 * block * 4  # int16 in/out + the latch plane; spectra in VMEM
-    return Roofline(flops, bytes_, block, unit="mxu")
-
-
-def enhance_mxu8_roofline(block=512, fft=1024) -> Roofline:
-    """Full-int8 fused engine (mxu8) at the r5 fidelity tier, per block.
-    MXU (bf16-equivalent; int8 dots count 0.5x): fwd 2 planes x 2 parts x
-    4 dots (incl. the lo-cross terms) = 16 int8 dots; inverse 2 planes x
-    (4 dots + the level-2 residual dot) = 10; J lane-flip 2 bf16 passes.
-    HBM: fwd reads the int16 block and writes re/im/mag f32 planes (10 KB);
-    the closed-form latch makes ~5 passes over the mag/intermediate/ns
-    planes (10 KB); the back kernel reads re/im/ns (6 KB) and writes int16
-    out (1 KB) -> ~27 KB/block.  Near the compute/memory knee since the r5
-    fidelity dots (+6) -- the r4 4-dot tier (mxu8t) sits clearly on the
-    memory side."""
-    macs_equiv = 0.5 * (16 + 10) * 512 * 512 + 2 * 512 * 512
-    flops = 2 * macs_equiv
-    bytes_ = block * 2 + 3 * fft // 2 * 4 * 2 + 5 * fft // 2 * 4 * 2 + 3 * 512 * 4 + block * 2
-    return Roofline(flops, bytes_, block, unit="mxu")
-
-
-def enhance_mxu8t_roofline(block=512, fft=1024) -> Roofline:
-    """Turbo tier (mxu8t): the r4 4-dot/1-level arithmetic on the FUSED-FULL
-    kernel (since r5b it routes through enhance_full8_pallas) -- fwd 2x2x3
-    = 12 int8 dots, inverse 2x3 = 6, J 2 bf16 passes, in-kernel latch 2
-    bf16 passes; HBM is input + VAD read + rowpack + int16 out only."""
-    macs_equiv = 0.5 * (12 + 6) * 512 * 512 + 2 * 512 * 512 + 2 * 512 * 512
-    flops = 2 * macs_equiv
-    bytes_ = block * 2 * 2 + 8 * 4 + block * 2
-    return Roofline(flops, bytes_, block, unit="mxu")
-
-
-def enhance_mxu8f_roofline(block=512, fft=1024) -> Roofline:
-    """Fully-fused single-kernel engine (mxu8f): mxu8's r5 dot counts plus
-    the in-kernel latch (2 bf16 M-matmul passes + skinny selector dots);
-    HBM collapses to input + VAD read + (T, 8) rowpack + int16 out -- no
-    plane ever leaves VMEM."""
-    macs_equiv = 0.5 * (16 + 10) * 512 * 512 + 2 * 512 * 512 + 2 * 512 * 512
-    flops = 2 * macs_equiv
-    bytes_ = block * 2 * 2 + 8 * 4 + block * 2  # input (kernel + VAD), rowpack, out
-    return Roofline(flops, bytes_, block, unit="mxu")
+def enhance_matmul_roofline(engine: str = "mxu3", block=512, fft=1024) -> Roofline:
+    """Matmul-DFT engines (ops/enhance._enhance_fast_mxu), per block: the
+    window-folded forward GEMMs (1024 x (2 x 512 + 1) MACs) and the
+    symmetry-halved inverse (2 x 512 x 512 + 512 MACs).  mxu runs them as
+    float32 dots, mxu3 as bf16x3 (3 tensor-core products per MAC).  Bytes:
+    int16 in/out plus ~8 float32 (T, 512) planes written and read once."""
+    macs = fft * (2 * 512 + 1) + 2 * 512 * 512 + 512
+    if engine == "mxu":
+        return Roofline(2 * macs, 2 * block * 2 + 8 * 512 * 4 * 2, block, unit="fp32")
+    return Roofline(3 * 2 * macs, 2 * block * 2 + 8 * 512 * 4 * 2, block, unit="bf16")
 
 
 def fastconv_roofline(block=1024, fft=8192, dtype_bytes=4) -> Roofline:
-    """Tiled XLA-rfft dense path (VPU vector FFT)."""
+    """Tiled ``jnp.fft`` rfft overlap-save path."""
     nlog = fft * np.log2(fft)
     flops = 2 * 5 * nlog + 8 * fft
     bytes_ = 6 * fft * dtype_bytes
-    return Roofline(flops, bytes_, block, unit="vpu")
+    return Roofline(flops, bytes_, block, unit="fp32")
 
 
 def fastconv_gemm8_roofline(block=1024, seg=8192, batch=2048, terms=2) -> Roofline:
-    """int8 Toeplitz engine: 2*terms (+1 h-only residual dot at terms=3)
-    s8xs8 dots of (T,8192)@(8192,1024) per hop; HBM as the f32 GEMM but
-    int8 segments.  terms=2 -> 2.0 bf16-equivalent passes (gemm8),
-    terms=3 -> 2.5 (gemm8hq)."""
-    ndots = {2: 4, 3: 5}[terms]  # both data planes pair with terms 1-2 only
-    flops = 0.5 * ndots * 2 * seg * block  # bf16-equivalent
-    bytes_ = (seg + block) * 2 + terms * seg * block * 1 / batch
-    return Roofline(flops, bytes_, block, unit="mxu")
+    """int8 Toeplitz engine: 4 (gemm8) or 5 (gemm8hq) s8 x s8 -> s32 dots of
+    (T, 8192) @ (8192, 1024) per hop; bytes: the int8 segment planes, the
+    output, and the int8 operator amortized over the batch."""
+    ndots = {2: 4, 3: 5}[terms]
+    flops = ndots * 2 * seg * block
+    bytes_ = 2 * seg + block * 2 + terms * seg * block / batch
+    return Roofline(flops, bytes_, block, unit="int8")
 
 
-def fastconv_gemm8hq_roofline(block=1024, seg=8192, batch=2048) -> Roofline:
-    return fastconv_gemm8_roofline(block, seg, batch, terms=3)
-
-
-def fastconv_gemm_roofline(block=1024, seg=8192, passes=3, batch=2048) -> Roofline:
-    """Banded-Toeplitz direct GEMM engine: (T,8192)@(8192,1024) bf16x3 per
-    hop.  HBM: the segment row + output + the 33.5 MB operator amortized
-    over the batched rows."""
-    flops = passes * 2 * seg * block
+def fastconv_gemm_roofline(block=1024, seg=8192, batch=2048) -> Roofline:
+    """Banded-Toeplitz GEMM engine: (T, 8192) @ (8192, 1024) per hop as a
+    float32 (HIGHEST) dot.  Bytes: the float32 segment row + output + the
+    33.5 MB operator amortized over the batched rows."""
+    flops = 2 * seg * block
     bytes_ = (seg + block) * 4 + seg * block * 4 / batch
-    return Roofline(flops, bytes_, block, unit="mxu")
+    return Roofline(flops, bytes_, block, unit="fp32")
 
 
 def fastconv_sparse_roofline(block=1024, taps=70) -> Roofline:
-    """Sparse direct path as implemented: a chain of 70 ``y += c * slice``
-    updates over the flat signal.  XLA materializes the accumulator between
-    slice-adds (each tap has a different shift, so the chain does not fuse
-    into one window read), so the op is MEMORY-bound on ~3 f32 words per
-    (tap, sample): slice read + y read + y write.  The r1-r3 record modeled
-    only the 3 VPU ops/(tap,sample) compute -- a 17.6 G "roof" the memory
-    traffic can never reach (the measured 0.97 G is ~99% of THIS roof,
-    which is the honest statement: the path is at its bandwidth ceiling;
-    going faster means fewer passes, i.e. the GEMM engines)."""
-    flops = 3 * taps * block
-    bytes_ = taps * 3 * block * 4
-    return Roofline(flops, bytes_, block, unit="vpu")
+    """Sparse direct path: a chain of 70 ``y += c * slice`` updates over the
+    flat signal, which XLA fuses into one pass on the GPU: an int16 read,
+    a float32 staging copy written and read, an int16 write per sample."""
+    flops = 2 * taps * block
+    bytes_ = block * (2 + 4 + 4 + 2)
+    return Roofline(flops, bytes_, block, unit="fp32")
 
 
-def geq_roofline(block=512, bands=7, dtype_bytes=4, assoc_scan=True) -> Roofline:
-    """Fast-linear GEQ, assoc-scan formulation (ops/geq.geq_apply_fast):
-    per band the FIR part is ~5 ops/sample and the IIR feedback runs as an
-    associative state-space scan -- ~2 combines/sample (up+down sweep),
-    each a 2x2@2x2 + 2x2@2 affine compose (~20 ops).  The direct-form
-    sequential kernel's roof is :func:`geq_seq_roofline` (it is DEPENDENCY-
-    bound, not issue-bound -- benching it against this model read 103%)."""
-    per_band = (5 + 2 * 20) if assoc_scan else 9
-    flops = block * bands * per_band
-    bytes_ = 2 * block * dtype_bytes  # one read + one write; state in VMEM
-    return Roofline(flops, bytes_, block, unit="vpu")
-
-
-def geq_seq_roofline(block=512, bands=7) -> Roofline:
-    """The benched GEQ fast path (kernels/biquad_pallas.geq_cascade_pallas):
-    a SEQUENTIAL per-sample cascade over 1024 lane-parallel streams.  The
-    roof is the hardware ISSUE rate of the ~9 ops/band/sample direct-form
-    body (~58.7 G samples/s) -- a true upper bound no sequential
-    implementation can beat.  The measured gap to it is the per-sample
-    DEPENDENCY CHAIN (each band's output feeds the next band, each
-    sample's state feeds the next sample): the r4 unroll sweep saturates
-    at ~25-28 G from unroll=128 up (1x 4.9 -> 4x 12-13 -> 8x 17.5 -> 16x
-    20.2 -> 64x 23.9 -> 128x+ ~26 G), i.e. ~44% of this roof is the chain
-    latency floor on this VPU, demonstrated empirically rather than
-    assumed from an undocumented latency figure."""
-    flops = block * bands * 9
-    bytes_ = 2 * block * 4  # one read + one write; state in VMEM
-    return Roofline(flops, bytes_, block, unit="vpu")
-
-
-def nlms_roofline(taps=256) -> Roofline:
-    """Per-sample NLMS Pallas kernel (kernels/nlms_pallas._kernel), per
-    sample per stream, all VPU element-ops over the (taps, 128) VMEM tiles
-    (rolls included -- a VMEM move occupies the same issue slots as an ALU
-    op):  2 window rolls (2t), df32 estimate dot (4t: 2 mul + 2 reduce-add),
-    norm dot (2t), update g*w (t), two-sum coefficient accumulation (~9t).
-    HBM: x, ref reads + est, err writes, all f32 after the host pad."""
-    flops = (2 + 4 + 2 + 1 + 9) * taps
-    bytes_ = 4 * 4
-    return Roofline(flops, bytes_, 1, unit="vpu")
-
-
-def bnlms_roofline(taps=128, block=1024) -> Roofline:
-    """Block NLMS Pallas kernel, per sample per stream.  In-kernel (VPU,
-    per sample): 2 rolls (2t), df32 estimate (4t), norm (2t), per-sample
-    gradient + two-sum accumulate (~10t); block-end coefficient update
-    amortizes to ~0.  The double-talk gate rides the MXU as matmul-DFT
-    GEMMs (~43 M hw flops/block ~= 0.1 us, off the VPU critical path; the
-    round-2 XLA-FFT gate burned 2/3 of the pipeline -- see _bnlms_gates).
-    HBM: x/ref reads + est/err writes (f32 after the host pad) + the
-    correlation plane (~10 B/sample)."""
-    kernel_flops = (2 + 4 + 2 + 10) * taps
-    bytes_ = 4 * 4 + 10
-    return Roofline(kernel_flops, bytes_, 1, unit="vpu")
-
-
-def amdf_roofline(lags=(101, 512), window=1024) -> Roofline:
-    """Pallas AMDF (pitch method 2), per 512-sample hop: for each lag,
-    |x[i] - x[i+lag]| summed over 1024 window samples, VMEM-resident.
-    2 issue slots per (lag, sample) pair: the subtract+abs pair issues as
-    one fused op on the VPU (the r3 3-op count put the measured kernel at
-    ~123% of "speed of light" -- a model bug, not a perf miracle) plus the
-    accumulate.  HBM: one int16-as-f32 read of the hop + result words."""
-    nlags = lags[1] - lags[0]
-    flops = 2 * nlags * window
-    bytes_ = 512 * 4 + 12
-    return Roofline(flops, bytes_, 512, unit="vpu")
+def geq_roofline(block=512, bands=7, dtype_bytes=4) -> Roofline:
+    """Fast-linear GEQ as associative state-space scans (ops/geq.
+    geq_apply_fast): per band ~5 FIR ops/sample plus ~2 combines/sample,
+    each a 2x2 @ 2x2 + 2x2 @ 2 affine compose (~20 ops)."""
+    flops = block * bands * (5 + 2 * 20)
+    bytes_ = 2 * block * dtype_bytes
+    return Roofline(flops, bytes_, block, unit="fp32")
 
 
 def mvdr_collapsed_roofline(block=512) -> Roofline:
-    """theta=0 structural collapse (ops/mvdr.py): per 512-sample block and
-    channel pair -- VAD window+energy (~6 ops/sample), two pair energies
-    (4), scalar cumsum (~0), the w0*l + w1*r mix (3), int16 clamp (2).
-    HBM: 2 int16 reads + 1 int16 write + f32 intermediates the fusion
-    can't elide (~3 planes)."""
+    """theta=0 structural collapse (ops/mvdr.py): per 512-sample block -- VAD
+    window + energy, two pair energies, the w0*l + w1*r mix, int16 clamp.
+    Bytes: 2 int16 reads + 1 int16 write + ~3 float32 intermediates."""
     flops = (6 + 4 + 3 + 2) * block
     bytes_ = (2 + 1) * block * 2 + 3 * block * 4
-    return Roofline(flops, bytes_, block, unit="vpu")
-
-
-def mvdr_spectral_roofline(block=512, fft=1024, passes=3) -> Roofline:
-    """Spectral MVDR path: 4 forward full-complex-of-real + 1 inverse
-    1024-pt transforms per block as mxu3 GEMMs (2 planes x fft^2 MACs
-    each), bf16x3 hardware passes, plus per-bin weight algebra (VPU,
-    negligible next to the GEMMs)."""
-    gemm_flops = passes * 5 * 2 * 2 * fft * fft
-    bytes_ = 14 * fft * 4
-    return Roofline(gemm_flops, bytes_, block, unit="mxu")
+    return Roofline(flops, bytes_, block, unit="fp32")
 
 
 def lpc_roofline(block=256, window=512, order=12) -> Roofline:
-    """Per 256-sample hop as implemented (ops/features.lpc_frames): 13
-    autocorrelation lags via jnp.roll + mask + reduce -- each lag
-    materializes a rolled copy in HBM (write + fused masked-product-reduce
-    read = 2 passes of window f32 per lag), so the op is MEMORY-bound on
-    the roll traffic, not compute-bound.  Levinson adds ~300 flops/frame."""
+    """Per 256-sample hop (ops/features.lpc_frames): 13 autocorrelation
+    lags via roll + mask + reduce (each lag a rolled copy: ~2 passes of the
+    window), plus ~300 flops of Levinson per frame."""
     flops = 2 * window + 13 * 4 * window + 300
     bytes_ = 13 * 2 * window * 4 + window * 4 + order * 4
-    return Roofline(flops, bytes_, block, unit="vpu")
+    return Roofline(flops, bytes_, block, unit="fp32")
 
 
-def mfcc_roofline(block=1024, fft=1024, passes=3) -> Roofline:
-    """Per 1024-sample block as implemented (kernels/mfcc_pallas): 2 frames,
-    each one fused VMEM pass -- forward DFT GEMMs over 512 bins (2 planes x
-    fft x 512 MACs, bf16x3; pre-emphasis + window folded into the bases) +
-    mel (512x128 padded, HIGHEST = x6) + DCT (128x128, x6)."""
-    macs_frame = passes * 2 * fft * 512 + 6 * (512 * 128 + 128 * 128)
-    flops = 2 * 2 * macs_frame
-    bytes_ = block * 2 + 2 * 12 * 4
-    return Roofline(flops, bytes_, block, unit="mxu")
+def wk_pitch_roofline(block=512, proc=1024) -> Roofline:
+    """Wiener-Khinchin pitch method 1 (mxu engines): one rdft(1024) (2 planes
+    x 1024 x 513 MACs) + one cosine autocorrelation matmul (513 x 512
+    MACs), float32 dots (the argmax over near-equal peaks needs them)."""
+    macs = 2 * proc * (proc // 2 + 1) + (proc // 2 + 1) * block
+    return Roofline(2 * macs, (proc + block) * 4, block, unit="fp32")
 
 
-def wk_pitch_roofline(block=512, proc=1024, pad=1, passes=6) -> Roofline:
-    """Wiener-Khinchin pitch as implemented (ops/features.pitch_frames
-    mxu path): one rdft(n) (2 planes x n x (n/2+1) MACs) + one cosine
-    autocorrelation matmul ((n/2+1) x 512 MACs), HIGHEST = bf16x6 hardware
-    passes.  pad=2 models method 3's zero-padded linear autocorrelation."""
-    n = proc * pad
-    macs = 2 * n * (n // 2 + 1) + (n // 2 + 1) * block
-    flops = passes * 2 * macs
-    bytes_ = (proc + block) * 4
-    return Roofline(flops, bytes_, block, unit="mxu")
-
-
-def wk_pitch3_roofline(block=512, proc=1024, passes=6) -> Roofline:
-    """Method 3 as implemented since r4: the zero-padded 2048-pt rdft
-    contracts over the 1024 REAL samples only (the zero half contributes
-    nothing), with 1024x1024 aligned bases + rank-1 Nyquist terms, then a
-    1024x512 power->autocorrelation matmul.  Half the forward FLOPs of the
-    padded-contraction model (wk_pitch_roofline(pad=2)); measured 1.39 ->
-    2.95 G (r4), 46% of this roof.  The residual gap is shared with pitch1
-    (47%): it is the HIGHEST-precision (bf16x6 emulated-f32) GEMM
-    efficiency ceiling at these shapes -- a RAW (2048,1024)@(1024,1024)
-    HIGHEST matmul measured 204 TF/s hw = 51.8% of the 394 TF peak (r4,
-    chained protocol) -- plus the inter-stage power/divide/argmax passes.
-    Not fixable by alignment; dropping to 3-pass HIGH is
-    ruled out because the observable is an argmax over near-equal
-    period-multiple peaks that 3-pass rounding flips (the mxu1/mxu3
-    study in ops/features.pitch_frames)."""
-    nbins = proc  # 1024 aligned bins (Nyquist split out as rank-1)
-    macs = 2 * proc * nbins + nbins * block
-    flops = passes * 2 * macs
-    bytes_ = (proc + block) * 4
-    return Roofline(flops, bytes_, block, unit="mxu")
+def wk_pitch3_roofline(block=512, proc=1024) -> Roofline:
+    """Method 3: the zero-padded 2048-pt rdft contracted over the 1024 real
+    samples (1024 x 1024 bases + rank-1 Nyquist terms), then a 1024 x 512
+    power -> autocorrelation matmul; float32 dots."""
+    macs = 2 * proc * proc + proc * block
+    return Roofline(2 * macs, (proc + block) * 4, block, unit="fp32")
 
 
 def fft_roundtrip_roofline(block=512) -> Roofline:
-    """Reference-parity FFT roundtrip row (ops/fft.roundtrip_blocks,
-    engine "xla"): one complex fft + ifft per 512-sample block on the VPU
-    (2 x 5 n log2 n vector flops) with the spectrum materialized between
-    them (int16 in/out + complex spectrum write/read + f32 inverse).  The
-    XLA FFT's internal stage passes are opaque to this model, so the row
-    reads low against it; the TUNED transforms in this framework are the
-    matmul-DFT engines (enhance/mfcc/pitch rows) -- this row exists for
-    program parity (FFTAlgorithm_ver2), not as a kernel showcase."""
+    """FFT roundtrip (ops/fft.roundtrip_blocks, engine "xla"): one complex
+    fft + ifft per 512-sample block with the spectrum materialized between
+    them."""
     nlog = block * np.log2(block)
     flops = 2 * 5 * nlog
     bytes_ = block * (2 + 2 + 8 + 8 + 4 + 4)
-    return Roofline(flops, bytes_, block, unit="vpu")
+    return Roofline(flops, bytes_, block, unit="fp32")
 
 
 def bnlms_xla_roofline(taps=128) -> Roofline:
-    """The 16-session vmapped XLA BNLMS variant (ops/nlms.bnlms_apply): per
-    sample per stream the (1024, 128) Toeplitz window W is materialized and
-    read back by the estimate matmul, the norm reduction, and the gradient
-    matmul -- ~3 f32 passes over 128 taps/sample of window traffic, which
-    is the binding side (the MXU matmuls and the rfft double-talk gate hide
-    under it).  The df32 Pallas kernel row (bnlms_pallas) is the tuned
-    path; this row exists as the pure-XLA reference point."""
-    flops = 6 * taps  # estimate + norm + gradient MACs, 2 flops each
-    bytes_ = 3 * taps * 4
-    return Roofline(flops, bytes_, 1, unit="vpu")
+    """Vmapped XLA BNLMS (ops/nlms.bnlms_apply): per sample per stream the
+    (1024, 128) Toeplitz window is materialized and read back by the
+    estimate matmul, the norm reduction and the gradient matmul -- ~3
+    float32 passes over 128 taps/sample."""
+    return Roofline(6 * taps, 3 * taps * 4, 1, unit="fp32")

@@ -5,7 +5,7 @@
 // point rounding observable.  XLA contracts mul+add into fma inside fused
 // loops (changing rounding on exactly-cancelling terms), so bit-exact compat
 // for these two kernels lives here, compiled with -ffp-contract=off to match
-// the reference's per-operation rounding.  The TPU fast paths (associative
+// the reference's per-operation rounding.  The device fast paths (associative
 // scan GEQ, batched BNLMS) remain in JAX.
 //
 // Exposed C ABI (ctypes):

@@ -1,9 +1,8 @@
-"""Unit tests for the MXU matmul-DFT primitives (ops/dft.py).
+"""Unit tests for the matmul-DFT primitives (ops/dft.py).
 
-On the CPU test backend every precision tier lowers to plain f32 matmuls,
-so these check the MATH (matrices, mirroring, Hermitian handling, the
-Wiener-Khinchin autocorrelation identity); TPU precision behavior is
-benchmarked and probed in bench/all_configs.py.
+These check the MATH (matrices, mirroring, Hermitian handling, the
+Wiener-Khinchin autocorrelation identity) on the CPU backend; each
+engine's dot algorithm on the GPU is checked by chip_smoke.py.
 """
 
 import numpy as np

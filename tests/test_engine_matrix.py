@@ -1,24 +1,12 @@
-"""Per-(pipeline, engine) fidelity matrix (VERDICT r3 item 6).
+"""Per-(pipeline, engine) fidelity matrix.
 
-Every engine reachable from the CLI (`--engine {xla,mxu,mxu3,mxu8,gemm}`)
-runs a small probe and is asserted against its DOCUMENTED SNR floor vs the
-f64 oracle, so `--engine` cannot silently ship a sub-bar configuration.
-
-Two lanes:
-
-- the op-level matrix on the CPU backend (plain-XLA forms; CPU ignores the
-  bf16 precision knobs, so these floors pin the MATH of each engine, not
-  the TPU rounding);
-- the fused Pallas kernels in interpret mode (bf16 splits and int8
-  quantization evaluated literally), which carry the TRUE TPU floors:
-  mxu3-fused >= 85 dB, mxu8/mxu8f (int8 fwd+back) >= 78 dB (r5: the
-  lo-cross dots + 2-level row quantization lifted the int8 engines from
-  ~70 to ~84 dB measured).  The on-hardware re-check of the same floors
-  lives in utils/tpu_checks.py and runs with every driver bench.
-
-The mxu1 (1-pass bf16) engine is EXCLUDED from the CLI because it lands
-below the 60 dB compat bar on TPU; CPU ignores DEFAULT-precision rounding
-so the exclusion guard also lives in utils/tpu_checks.py (mxu1_below_bar).
+Every engine reachable from the CLI (`--engine {xla,mxu,mxu3,gemm,gemm8,
+gemm8hq}`) runs a small probe and is asserted against its documented SNR
+floor vs the f64 oracle (config.ENGINE_FIDELITY), so `--engine` cannot
+silently ship a sub-bar configuration.  These run on the CPU backend, which
+computes float32 dots in float32; chip_smoke.py asserts the same floors on
+the GPU, where each engine's dot algorithm (ops/dft.py) is what the card
+runs.  Engine names that no pipeline implements are refused, never aliased.
 """
 
 import numpy as np
@@ -56,57 +44,6 @@ def test_enhance_engine_floor(probe, mode, engine, floor):
     assert snr_db(want, got) >= floor
 
 
-@pytest.mark.parametrize(
-    "kw,floor",
-    [
-        # fused bf16x3 (the TPU mxu3 path): measured ~92.6 dB on this probe
-        (dict(), 85.0),
-        # full int8 engine (mxu8: int8-split fwd + per-row-quantized
-        # inverse): ~84 dB since r5 (lo-cross dots + 2-level row quant)
-        (dict(int8=True), 78.0),
-        # turbo tier (mxu8t: the r4 4-dot arithmetic): ~70 dB -- an
-        # explicit speed/fidelity trade, documented and floor-pinned
-        (dict(int8=True, hq=False), 65.0),
-    ],
-)
-@pytest.mark.parametrize("mode", ["wiener", "specsub"])
-def test_enhance_fused_kernel_floor(probe, mode, kw, floor):
-    """Interpret mode evaluates the bf16/int8 splits literally -- these are
-    the TPU engines' fidelity contracts (re-proven on silicon by
-    utils/tpu_checks.run_checks with every driver bench)."""
-    from jeicyboodsp_tpu.oracle import enhance as oenh
-    from jeicyboodsp_tpu.ops import enhance as E
-
-    want = oenh.run(probe, mode).astype(np.float64)
-    out, mask = E._enhance_fused3(
-        jnp.asarray(probe.reshape(-1, 512)), mode, False, interpret=True, F=8, **kw
-    )
-    got = np.asarray(out)[np.asarray(mask)].reshape(-1)
-    assert snr_db(want, got) >= floor
-
-
-@pytest.mark.parametrize("mode", ["wiener", "specsub"])
-def test_enhance_fused_full_kernel_floor(probe, mode):
-    """mxu8f (single-kernel engine incl. the in-kernel noise latch): same
-    int8 arithmetic as mxu8, same >= 78 dB contract."""
-    from jeicyboodsp_tpu.oracle import enhance as oenh
-    from jeicyboodsp_tpu.ops import enhance as E
-
-    want = oenh.run(probe, mode).astype(np.float64)
-    out, mask = E._enhance_fused_full(
-        jnp.asarray(probe.reshape(-1, 512)), mode, False, interpret=True, F=8, L=4
-    )
-    got = np.asarray(out)[np.asarray(mask)].reshape(-1)
-    assert snr_db(want, got) >= 78.0
-    # the turbo tier (mxu8t) routes through this kernel too (hq=False)
-    out_t, mask_t = E._enhance_fused_full(
-        jnp.asarray(probe.reshape(-1, 512)), mode, False, interpret=True,
-        F=8, L=4, hq=False,
-    )
-    got_t = np.asarray(out_t)[np.asarray(mask_t)].reshape(-1)
-    assert snr_db(want, got_t) >= 65.0
-
-
 @pytest.mark.parametrize("engine,floor", [("xla", 80.0), ("mxu", 80.0), ("mxu3", 80.0)])
 def test_mvdr_engine_floor(probe, engine, floor):
     from jeicyboodsp_tpu.oracle import mvdr as omv
@@ -121,7 +58,7 @@ def test_mvdr_engine_floor(probe, engine, floor):
     assert snr_db(want, got) >= floor
 
 
-@pytest.mark.parametrize("engine,floor", [("xla", 100.0), ("mxu", 100.0), ("mxu3", 100.0)])
+@pytest.mark.parametrize("engine,floor", [("xla", 100.0), ("mxu", 100.0)])
 def test_mfcc_engine_floor(probe, engine, floor):
     from jeicyboodsp_tpu.oracle import mfcc as omf
     from jeicyboodsp_tpu.ops import features as FE
@@ -133,7 +70,7 @@ def test_mfcc_engine_floor(probe, engine, floor):
 
 @pytest.mark.parametrize(
     "engine,floor",
-    [("auto", 85.0), ("xla", 88.0), ("mxu3", 88.0), ("gemm", 95.0),
+    [("auto", 85.0), ("xla", 88.0), ("gemm", 95.0),
      # 2-term int8 Toeplitz GEMM: operator-split residual bounds it
      # (~76.6-84.9 dB measured; the 3-dot form without l@Ml was 54.6)
      ("gemm8", 70.0),
@@ -174,3 +111,24 @@ def test_fft_engine_floor(probe, engine, floor):
                            dtype=jnp.float32, engine=engine)
     ).reshape(-1)
     assert snr_db(want, got) >= floor
+
+
+@pytest.mark.parametrize(
+    "pipeline,engine",
+    [("enhance", "mxu8"), ("enhance", "mxu8f"), ("enhance", "mxu8t"),
+     ("enhance", "mxu1"), ("fastconv", "mxu"), ("fastconv", "mxu3"),
+     ("mfcc", "mxu8"), ("mfcc", "mxu3"), ("pitch", "mxu8")],
+)
+def test_removed_engine_names_are_refused(probe, pipeline, engine):
+    from jeicyboodsp_tpu.ops import enhance as E
+    from jeicyboodsp_tpu.ops import fastconv as FC
+    from jeicyboodsp_tpu.ops import features as FE
+
+    run = {
+        "enhance": lambda: E.run_stream(probe, "wiener", dtype=jnp.float32, fft_engine=engine),
+        "fastconv": lambda: FC.run_stream(probe, dtype=jnp.float32, fft_engine=engine),
+        "mfcc": lambda: FE.mfcc_run(probe, dtype=jnp.float32, fft_engine=engine),
+        "pitch": lambda: FE.pitch_run(probe, 2, dtype=jnp.float32, fft_engine=engine),
+    }[pipeline]
+    with pytest.raises(ValueError, match="unknown"):
+        run()

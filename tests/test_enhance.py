@@ -69,9 +69,8 @@ def test_fast_config_snr(rng, snr):
 
 
 def test_mxu_dft_engine_snr(rng, snr):
-    """The MXU matmul-DFT engines keep the compat contract: HIGHEST ('mxu')
-    and 3-pass ('mxu3', the headline-bench default, 84 dB on TPU) both
-    >= 60 dB vs the f64 oracle.  On CPU both lower to plain f32 matmuls."""
+    """The matmul-DFT engines keep the compat contract: float32 dots
+    ('mxu') and bf16x3 dots ('mxu3') both >= 60 dB vs the f64 oracle."""
     x = _signal(rng)
     ref = oenh.run(x, "wiener")
     T = len(x) // 512

@@ -62,26 +62,6 @@ def test_sparse_engine_matches_oracle(rng, snr):
     assert d.max() <= 1, d.max()
 
 
-def test_fastconv_mxu_engine_close(rng, snr):
-    """Four-step MXU dense path vs the f64 XLA path: >= 60 dB and +-1 LSB
-    on all but FFT-rounding flips."""
-    import jax.numpy as jnp
-
-    from jeicyboodsp_tpu.ops.fastconv import (
-        fastconv_blocks, fastconv_blocks_mxu, filter_spectrum,
-    )
-
-    x = np.clip(rng.normal(0, 1500, 1024 * 12), -32768, 32767).astype(np.int16)
-    blocks = jnp.asarray(x.reshape(-1, 1024))
-    Hr, Hi = filter_spectrum(dtype=jnp.float64)
-    want = np.asarray(fastconv_blocks(blocks, Hr, Hi, dtype=jnp.float64))
-    Hr32, Hi32 = filter_spectrum(dtype=jnp.float32)
-    got = np.asarray(fastconv_blocks_mxu(blocks, Hr32, Hi32))
-    assert snr(want.reshape(-1), got.reshape(-1)) >= 60.0
-    d = want.astype(np.int64) - got.astype(np.int64)
-    assert np.abs(d).max() <= 1, np.abs(d).max()
-
-
 def test_gemm_engine_matches_oracle(rng, snr):
     """Banded-Toeplitz direct-GEMM dense engine: exact linear convolution.
 
@@ -97,11 +77,11 @@ def test_gemm_engine_matches_oracle(rng, snr):
     assert d.max() <= 1, d.max()
     got32 = np.asarray(fastconv_blocks_gemm(blocks, dtype=jnp.float32)).reshape(-1)
     assert snr(want, got32) >= 60.0, snr(want, got32)
-    # run_stream plumbing: dtype flows through (ADVICE r2) -- the default
-    # f64 call takes the exact Toeplitz path, an explicit f32 call the MXU one
+    # run_stream plumbing: dtype flows through -- the default f64 call takes
+    # the exact Toeplitz path, an explicit f32 call the float32 (HIGHEST) dot
     via_stream64 = jfc.run_stream(x, fft_engine="gemm")
     want64 = np.asarray(
-        fastconv_blocks_gemm(blocks, dtype=jnp.float64, precision_name="highest")
+        fastconv_blocks_gemm(blocks, dtype=jnp.float64)
     ).reshape(-1)
     np.testing.assert_array_equal(via_stream64, want64)
     via_stream32 = jfc.run_stream(x, dtype=jnp.float32, fft_engine="gemm")

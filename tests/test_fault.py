@@ -20,8 +20,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _cli(*args, timeout=280):
+    # the child stays on the CPU backend: one JAX process per card
     return subprocess.run(
-        [sys.executable, "-m", "jeicyboodsp_tpu.cli", *args],
+        [sys.executable, "-m", "jeicyboodsp_tpu.cli", *args, "--cpu"],
         cwd=ROOT,
         capture_output=True,
         timeout=timeout,

@@ -42,7 +42,7 @@ def test_pitch_all_methods_match_oracle(rng):
 
 
 def test_mfcc_mxu_engine_snr(rng, snr):
-    """MXU matmul-DFT MFCC stays feature-accurate (>= 60 dB vs oracle)."""
+    """Matmul-DFT MFCC stays feature-accurate (>= 60 dB vs oracle)."""
     import jax.numpy as jnp
 
     x = _speech(rng, 1024 * 5)
@@ -52,7 +52,7 @@ def test_mfcc_mxu_engine_snr(rng, snr):
     feats = np.asarray(
         jf.mfcc_blocks(
             jnp.asarray(x.reshape(-1, 1024)), mel_m, dct_m,
-            dtype=jnp.float32, fft_engine="mxu3",
+            dtype=jnp.float32, fft_engine="mxu",
         )
     )
     got = feats[1 : 1 + len(want)]  # run-level first-frame skip
@@ -60,7 +60,7 @@ def test_mfcc_mxu_engine_snr(rng, snr):
 
 
 def test_pitch_mxu_engine_lags(rng):
-    """MXU Wiener-Khinchin autocorrelation reproduces the oracle's lags."""
+    """Matmul Wiener-Khinchin autocorrelation reproduces the oracle's lags."""
     import jax.numpy as jnp
 
     x = _speech(rng, 512 * 8)
@@ -87,7 +87,7 @@ def test_pitch_finds_period_multiple(rng):
 
 
 def test_lpc_levinson_matches_solve(rng):
-    """Levinson-Durbin (the TPU fast solver) == explicit Toeplitz solve."""
+    """Levinson-Durbin (the elementwise fast solver) == explicit Toeplitz solve."""
     import jax.numpy as jnp
 
     x = _speech(rng, 256 * 9 + 40)

@@ -78,25 +78,3 @@ def test_fast_mode_close_to_unquantized_filter(rng, snr):
         y_ref = out
     y = np.asarray(jgeq.geq_apply_fast(jnp.asarray(x), b, a, dtype=jnp.float64))
     assert snr(y_ref, y) >= 90.0, snr(y_ref, y)
-
-
-def test_qb_kernel_matches_scan_replica(rng):
-    """The linear Pallas kernel's quant_boundaries variant (the r5
-    measured-negative experiment, kept as the record) == its lax.scan
-    replica geq_apply_fast_qb to +-1 LSB (same per-sample op order; only
-    XLA-vs-interpret rounding grouping differs)."""
-    from jeicyboodsp_tpu.kernels import biquad_pallas as bq
-
-    x = _signal(rng, 2048)
-    b, a = jgeq.geq_coefficients()
-    want = np.asarray(jgeq.geq_apply_fast_qb(jnp.asarray(x)[None], b, a))[0]
-    got = np.asarray(
-        bq.geq_cascade_pallas(
-            jnp.asarray(x)[None].astype(jnp.float32), bq.pack_coefficients(b, a),
-            interpret=True, quant_boundaries=True,
-        )
-    )[0]
-    d = want.astype(np.int64) - got.astype(np.int64)
-    assert np.abs(d).max() <= 1 and (d != 0).mean() < 0.02, (
-        np.abs(d).max(), (d != 0).mean(),
-    )

@@ -37,7 +37,7 @@ def test_f32_snr(rng, snr):
 
 
 def test_mxu_engine_snr(rng, snr):
-    """The MXU matmul-DFT engine keeps the compat contract for MVDR."""
+    """The matmul-DFT engine keeps the compat contract for MVDR."""
     xl, xr = _stereo(rng)
     want = omv.run(xl, xr)
     got = jmv.run_stream(xl, xr, dtype=jnp.float32, fft_engine="mxu3")

@@ -73,6 +73,47 @@ def test_mfcc_gmm_chain(tmp_path):
         assert pred == ci, results
 
 
+def test_gmm_test_scores_below_float32_range(tmp_path):
+    """--fast (a float32 dtype, x64 off) still scores in float64: per-frame
+    likelihoods near e^-150 underflow float32 to 0, whose log -inf would
+    leave every decision on the incumbent class 1."""
+    import jax
+    import jax.numpy as jnp
+
+    from jeicyboodsp_tpu.models import serialization as S
+    from jeicyboodsp_tpu.oracle import gmm as ogmm
+
+    ev = np.stack([np.eye(12)[:, :4]] * 4)
+    cov = np.stack([np.eye(12)] * 4)
+
+    def gmm(offset):
+        mean = np.zeros((4, 12))
+        mean[:, :4] = offset
+        return np.full(4, 0.25), mean, cov, ev
+
+    classes = [gmm(10.0), gmm(8.5)]  # ~-204 and ~-148 per frame
+    model = tmp_path / "model.bin"
+    model.write_bytes(b"".join(S.pack_gmm(*c) for c in classes))
+    frames = np.random.default_rng(3).normal(0, 0.1, (32, 12))
+    mfc = tmp_path / "t.mfc"
+    frames.astype("<f8").tofile(mfc)
+    lists = []
+    for c in range(2):
+        lst = tmp_path / f"t{c}.lst"
+        lst.write_text(str(mfc))
+        lists.append(str(lst))
+    main = tmp_path / "test.lst"
+    main.write_text("\n".join(lists))
+
+    want = [ogmm.score_file(frames, a, m, np.stack([np.diag(c)[:4] for c in cv]), e)
+            for a, m, cv, e in classes]
+    assert want[1] > want[0] and max(want) < -103.0  # below float32's range
+    with jax.enable_x64(False):
+        results = run_pipeline("gmm-test", str(main), str(model), dtype=jnp.float32)
+    assert [pred for _, pred, _ in results] == [1, 1]
+    np.testing.assert_allclose(results[0][2], want, rtol=1e-9)
+
+
 def test_cli_main(tmp_path, rng):
     """argparse entry point end to end (forced CPU)."""
     from jeicyboodsp_tpu.cli import main

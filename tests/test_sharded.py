@@ -30,7 +30,7 @@ def test_devices_available():
 
 
 def test_mvdr_sharded_bins_matches_mxu_engine(rng):
-    """Tensor-parallel (frequency-bin) MVDR == unsharded MXU-DFT engine up
+    """Tensor-parallel (frequency-bin) MVDR == unsharded matmul-DFT engine up
     to f32 reduction-order rounding (+-1 int16 truncation flips)."""
     import jax.numpy as jnp
 

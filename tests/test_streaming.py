@@ -55,7 +55,7 @@ def test_metrics_and_roofline():
     assert r["counters"]["blocks"] == 5 and "step" in r["timings"]
     assert snr_db([1.0, 2.0], [1.0, 2.0]) == float("inf")
 
-    roof = enhance_chain_roofline().bound()
+    roof = enhance_chain_roofline().bound("NVIDIA H100 80GB HBM3")
     assert roof["speed_of_light_samples_per_s"] > 1e9  # the chain's ceiling
 
 
